@@ -11,16 +11,23 @@ Layer map (each module names its ``ohm_tpu`` counterpart):
   mapping/batch.py   rayflow host wire              (ohm_tpu/mapping/batch.py)
   mapping/arena.py   device voxel arena             (ohm_tpu/mapping/arena.py)
   mapping/torch_map  TorchRayMapper                 (ohm_tpu/mapping/tpu_map.py)
+  mapping/ndt_map    TorchNdtMap, NDT-OM/TM         (ohm_tpu/mapping/ndt_map.py)
   ops/wire.py        rayflow wire decode            (ohm_tpu/ops/integrate.py)
   ops/ddawalk.py     rank walk, K1's plain version  (ohm_tpu/ops/ddawalk.py)
   ops/integrate.py   expand and apply phases        (ohm_tpu/ops/integrate.py)
+  ops/integrate_ndt  NDT miss, hit and deposit      (ohm_tpu/ops/integrate_ndt.py)
+  ops/ndt.py         NDT math                       (ohm_tpu/ops/ndt.py)
+  ops/subvoxel.py    sub-voxel mean codec           (ohm_tpu/ops/subvoxel_jnp.py)
+  ops/segments.py    deterministic segment sums     (ohm_tpu/ops/integrate.py, blocked.py)
   ops/expand_cuda    K1 wrapper  -> csrc/expand.cu  (ohm_tpu/ops/expand_pallas.py)
-  ops/deposit_cuda   K2 wrapper  -> csrc/deposit.cu (ohm_tpu/ops/deposit_pallas.py)
+  ops/deposit_cuda   K2, K3      -> csrc/deposit.cu (ohm_tpu/ops/deposit_pallas.py)
+  ops/gather_cuda    K4 wrapper  -> csrc/gather.cu  (ohm_tpu/ops/deposit_pallas.py)
 """
 
 __version__ = "0.1.0"
 
 from ohm_tpu_torch.device import require_cuda, resolve_device
+from ohm_tpu_torch.mapping.ndt_map import TorchNdtMap
 from ohm_tpu_torch.mapping.torch_map import TorchRayMapper
 
-__all__ = ["TorchRayMapper", "require_cuda", "resolve_device"]
+__all__ = ["TorchNdtMap", "TorchRayMapper", "require_cuda", "resolve_device"]

@@ -15,11 +15,15 @@
 // later candidates win).  The key is slot * V + local, or the sentinel for
 // an invalid, unresolved or excluded-origin record.  Valid unresolved
 // records are counted: one __syncthreads_count and one atomicAdd a block.
+// With a voxel-plane output (``vox`` not null; the NDT path's with_vox),
+// the record's absolute voxel is stored too, one i32 plane per axis
+// [3][B][3S]: three more coalesced stores a record.
 //
 // What bounds it on the H100: integer and ALU work, ~60 dependent ops and a
 // K-way compare per record, against 4 bytes written per record and a few
-// dozen bytes read per ray; nothing is gathered or sorted.  The design keeps
-// it there: the per-ray scalars are staged once per block in shared memory
+// dozen bytes read per ray (16 bytes written with the voxel planes);
+// nothing is gathered or sorted.  The design keeps it there: the per-ray
+// scalars are staged once per block in shared memory
 // (every thread of the block belongs to the same ray), records map to
 // consecutive threads, so key stores coalesce, and blockIdx.x runs over the
 // rays, whose count can exceed gridDim.y's 65535.
@@ -50,8 +54,8 @@ __device__ __forceinline__ float event_time(float e0, float dd, int m) {
 __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
     const float* __restrict__ fray, const int* __restrict__ iray,
     const int* __restrict__ gmeta, int* __restrict__ key,
-    int* __restrict__ missed, int S, int K, int shift, int v, int sentinel,
-    int exclude_origin) {
+    int* __restrict__ vox, int* __restrict__ missed, int B, int S, int K,
+    int shift, int v, int sentinel, int exclude_origin) {
   __shared__ float sf[9];
   __shared__ int si[10 + kMaxK];
   __shared__ int sg[3];
@@ -101,11 +105,12 @@ __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
     int local_idx = 0;
     bool in_box = true;
     for (int b = 0; b < 3; ++b) {
-      const int vox = si[b] + si[3 + b] * counts[b];
-      const int rel = (vox >> shift) - sg[b];
+      const int abs_b = si[b] + si[3 + b] * counts[b];
+      const int rel = (abs_b >> shift) - sg[b];
       packed |= (int)((unsigned)rel << (6 * b));
       in_box = in_box && rel >= 0 && rel < 64;
-      local_idx |= (vox & dim_mask) << (shift * b);
+      local_idx |= (abs_b & dim_mask) << (shift * b);
+      if (vox != nullptr) vox[((size_t)b * B + ray) * W + j] = abs_b;
     }
     if (!in_box) packed = -1;
     int slot = -1;
@@ -131,17 +136,18 @@ __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
 
 }  // namespace
 
+// vox may be null (no voxel planes).
 extern "C" int ohm_expand_keys(const void* fray, const void* iray,
-                               const void* gmeta, void* key, void* missed,
-                               int B, int S, int K, int shift, int v,
-                               int sentinel, int exclude_origin,
+                               const void* gmeta, void* key, void* vox,
+                               void* missed, int B, int S, int K, int shift,
+                               int v, int sentinel, int exclude_origin,
                                void* stream) {
   if (K < 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
   if (B > 0 && S > 0) {
     const dim3 grid(B, (3 * S + kBlock - 1) / kBlock);
     expand_keys_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
         (const float*)fray, (const int*)iray, (const int*)gmeta, (int*)key,
-        (int*)missed, S, K, shift, v, sentinel, exclude_origin);
+        (int*)vox, (int*)missed, B, S, K, shift, v, sentinel, exclude_origin);
   }
   return (int)cudaGetLastError();
 }

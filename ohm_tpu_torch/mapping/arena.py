@@ -1,15 +1,22 @@
-"""Device voxel arena: the occupancy layer of every resident region in one
-flat tensor, with LRU paging to the host map.
+"""Device voxel arena: every layer of every resident region in one flat
+tensor per layer, with LRU paging to the host map.
 
-Counterpart of ``VoxelArena`` in ``ohm_tpu/mapping/arena.py`` (occupancy
-layer, "zero" encoding).  The arena holds ``capacity * V + 1`` f32 values on
-its device: region slot s owns ``[s*V, (s+1)*V)``, and the last element is
-the sentinel that dropped records address (the deposit kernel skips it).
-Unobserved voxels hold -0.0 on the device and +inf in the host map; every
-transfer converts.  The host keeps the authoritative region -> slot
-directory (ops.regiontable.HostRegionTable, read by the native wire pass).
-The reference's 512-multiple padding and scatter tail served Pallas and
-the XLA scatter; the CUDA kernels need neither.
+Counterpart of ``VoxelArena`` in ``ohm_tpu/mapping/arena.py`` for the layers
+the port has: occupancy, and for NDT mean (``mean_coord``, ``mean_count``),
+covariance ``cov`` [N,6], and for NDT-TM ``intensity`` [N,2],
+``hit_count`` and ``miss_count``.  Each layer holds ``capacity * V + 1``
+voxels on its device: region slot s owns ``[s*V, (s+1)*V)``, and the last
+element is the sentinel that dropped records address (no kernel writes it).
+The reference's 512-multiple padding and scatter tail served Pallas and the
+XLA scatter; the CUDA kernels need neither.
+
+Two occupancy encodings, as in the reference: "zero" (the occupancy mapper)
+holds unobserved voxels as -0.0 on the device; "inf" (the NDT mapper) keeps
+the host's +inf.  Every host transfer converts.  The u32 layers are stored
+as int32 bit patterns (torch has no trustworthy uint32 arithmetic) and are
+reinterpreted at the host boundary, never converted through float.  The host
+keeps the authoritative region -> slot directory
+(ops.regiontable.HostRegionTable, read by the native wire pass).
 """
 
 from __future__ import annotations
@@ -32,26 +39,59 @@ class CacheFull(RuntimeError):
     mapper splits the batch and retries (ohmgpu/GpuMap.cpp:922-1017)."""
 
 
+#: Arena layers: name -> (device dtype, host dtype, width or None).  The
+#: u32 layers live as int32 bit patterns; every clear value is 0 except
+#: occupancy's, which the encoding sets.
+LAYER_SPECS = {
+    "occupancy": (torch.float32, np.float32, None),
+    "mean_coord": (torch.int32, np.uint32, None),
+    "mean_count": (torch.int32, np.uint32, None),
+    "cov": (torch.float32, np.float32, 6),  # packed lower-triangular sqrt cov
+    "intensity": (torch.float32, np.float32, 2),  # mean, cov
+    "hit_count": (torch.int32, np.uint32, None),
+    "miss_count": (torch.int32, np.uint32, None),
+}
+
+_COV_MEMBERS = ("P00", "P01", "P11", "P02", "P12", "P22")
+#: Scalar layers stored in one member of a host layer.
+_HOST_MEMBERS = {
+    "occupancy": (layoutmod.OCCUPANCY_LAYER, "occupancy"),
+    "mean_coord": (layoutmod.MEAN_LAYER, "coord"),
+    "mean_count": (layoutmod.MEAN_LAYER, "count"),
+    "hit_count": (layoutmod.HIT_MISS_COUNT_LAYER, "hit_count"),
+    "miss_count": (layoutmod.HIT_MISS_COUNT_LAYER, "miss_count"),
+}
+
+
 def encode_occupancy(host_data: np.ndarray) -> np.ndarray:
-    """Host values (+inf = unobserved) -> arena values (-0.0 = unobserved)."""
+    """Host values (+inf = unobserved) -> "zero" arena values (-0.0)."""
     return np.where(np.isposinf(host_data), np.float32(-0.0),
                     host_data).astype(np.float32)
 
 
 def decode_occupancy(device_data: np.ndarray) -> np.ndarray:
-    """Arena values (-0.0 = unobserved) -> host values (+inf = unobserved)."""
+    """"zero" arena values (-0.0 = unobserved) -> host values (+inf)."""
     unobs = (device_data == 0) & np.signbit(device_data)
     return np.where(unobs, np.float32(np.inf), device_data).astype(np.float32)
 
 
 class VoxelArena:
-    """Fixed-capacity device store of map regions (occupancy layer)."""
+    """Fixed-capacity device store of map regions for a set of layers."""
 
-    def __init__(self, capacity: int, region_shift: int, device: torch.device):
+    def __init__(self, capacity: int, region_shift: int, device: torch.device,
+                 layer_names=("occupancy",), occupancy_encoding: str = "zero"):
+        if occupancy_encoding not in ("inf", "zero"):
+            raise ValueError(f"unknown occupancy encoding {occupancy_encoding!r}")
+        unknown = set(layer_names) - set(LAYER_SPECS)
+        if unknown or "occupancy" not in layer_names:
+            raise ValueError(f"arena layers must include occupancy and come from "
+                             f"{sorted(LAYER_SPECS)}; got {list(layer_names)}")
+        self.occupancy_encoding = occupancy_encoding
         self.capacity = int(capacity)
         self.region_shift = int(region_shift)
         self.voxels_per_region = 1 << (3 * region_shift)
         self.device = device
+        self.layer_names = list(layer_names)
         self.table = HostRegionTable()
         self.slot_of: dict[tuple[int, int, int], int] = {}
         self.region_of: list = [None] * self.capacity
@@ -60,9 +100,39 @@ class VoxelArena:
         self.batch_counter = 0
         #: Region lookups that found a resident slot, allocations, evictions.
         self.stats = {"hits": 0, "misses": 0, "evictions": 0}
-        self.occupancy = torch.full(
-            (self.capacity * self.voxels_per_region + 1,), -0.0,
-            dtype=torch.float32, device=device)
+        n = self.capacity * self.voxels_per_region + 1
+        self.layers: dict[str, torch.Tensor] = {}
+        for name in self.layer_names:
+            dtype, _, width = LAYER_SPECS[name]
+            shape = (n, width) if width else (n,)
+            self.layers[name] = torch.full(shape, self._clear(name), dtype=dtype,
+                                           device=device)
+
+    @property
+    def occupancy(self) -> torch.Tensor:
+        return self.layers["occupancy"]
+
+    def _clear(self, name: str) -> float:
+        if name != "occupancy":
+            return 0
+        return -0.0 if self.occupancy_encoding == "zero" else float("inf")
+
+    def _to_device(self, name: str, host: np.ndarray) -> np.ndarray:
+        """Host layer values -> the arena's representation (numpy)."""
+        if name == "occupancy":
+            host = np.asarray(host, np.float32)
+            return encode_occupancy(host) if self.occupancy_encoding == "zero" else host
+        if LAYER_SPECS[name][1] == np.uint32:
+            return np.ascontiguousarray(host, dtype=np.uint32).view(np.int32)
+        return np.ascontiguousarray(host, dtype=np.float32)
+
+    def _to_host(self, name: str, dev: np.ndarray) -> np.ndarray:
+        """The arena's representation (numpy) -> host layer values."""
+        if name == "occupancy" and self.occupancy_encoding == "zero":
+            return decode_occupancy(dev)
+        if LAYER_SPECS[name][1] == np.uint32:
+            return dev.view(np.uint32)
+        return dev
 
     def ensure_regions(self, region_keys: np.ndarray, host_map=None,
                        allow_evict: bool = True):
@@ -126,28 +196,31 @@ class VoxelArena:
         return slice(slot * v, (slot + 1) * v)
 
     def _upload_region(self, host_map, key, slot: int):
-        """Push a host chunk's occupancy into the arena slot."""
-        idx = host_map.layout.layer_index(layoutmod.OCCUPANCY_LAYER)
-        data = np.ascontiguousarray(
-            host_map.region(key).layers[idx]["occupancy"]).astype(np.float32, copy=False)
-        self.occupancy[self._slot_slice(slot)] = torch.from_numpy(
-            encode_occupancy(data)).to(self.device)
+        """Push a host chunk's layers into the arena slot."""
+        chunk = host_map.region(key)
+        sl = self._slot_slice(slot)
+        for name, data in _read_host_chunk(host_map, chunk, self.layer_names).items():
+            self.layers[name][sl] = torch.from_numpy(
+                self._to_device(name, data)).to(self.device)
 
     def _download_region(self, host_map, key, slot: int):
         """Pull one arena slot back into the host map chunk and clear it."""
         sl = self._slot_slice(slot)
-        chunk = host_map.region(key, allow_create=True)
-        _write_host_chunk(host_map, chunk, decode_occupancy(self.occupancy[sl].cpu().numpy()))
-        self.occupancy[sl] = -0.0
+        pulled = {name: self._to_host(name, t[sl].cpu().numpy())
+                  for name, t in self.layers.items()}
+        _write_host_chunk(host_map, host_map.region(key, allow_create=True), pulled)
+        for name, t in self.layers.items():
+            t[sl] = self._clear(name)
 
     def sync_to_host(self, host_map, stamp=None):
-        """Download every resident region that holds an observed voxel into
+        """Download every resident region that holds a touched voxel into
         the host map (GpuMap::syncVoxels)."""
-        pulled_all = decode_occupancy(self.occupancy.cpu().numpy())
+        pulled_all = {name: self._to_host(name, t.cpu().numpy())
+                      for name, t in self.layers.items()}
         v = self.voxels_per_region
         for key, slot in self.slot_of.items():
-            pulled = pulled_all[slot * v:(slot + 1) * v]
-            if np.all(np.isinf(pulled)):
+            pulled = {name: a[slot * v:(slot + 1) * v] for name, a in pulled_all.items()}
+            if _region_untouched(pulled):
                 continue
             chunk = host_map.region(key, allow_create=True)
             _write_host_chunk(host_map, chunk, pulled)
@@ -156,7 +229,86 @@ class VoxelArena:
                 chunk.touched_stamps[:] = stamp
 
 
-def _write_host_chunk(host_map, chunk, occupancy: np.ndarray):
-    """Store a slot's decoded occupancy into a host chunk."""
-    idx = host_map.layout.layer_index(layoutmod.OCCUPANCY_LAYER)
-    chunk.layers[idx]["occupancy"] = occupancy
+def arena_from_reference(arrays: dict, capacity: int, region_shift: int,
+                         device, directory=None) -> VoxelArena:
+    """The port's NDT ("inf"-encoded) arena holding the state of a JAX NDT
+    ``VoxelArena`` (also "inf"-encoded).
+
+    ``arrays`` maps layer names to the reference arena's arrays as numpy
+    (``{k: np.asarray(v) for k, v in ref.arrays.items()}``); their scratch
+    tail and 512-multiple padding are cut to ``capacity * V + 1`` voxels and
+    the u32 layers become int32 bit patterns.  ``directory``, when given, is
+    an arena (either package's) whose region -> slot directory, LRU state
+    and stats are copied too."""
+    names = [n for n in LAYER_SPECS if n in arrays]
+    arena = VoxelArena(capacity, region_shift, device, names, "inf")
+    n = arena.capacity * arena.voxels_per_region + 1
+    for name in names:
+        data = arena._to_device(name, np.asarray(arrays[name])[:n])
+        arena.layers[name] = torch.from_numpy(np.array(data)).to(device)
+    if directory is not None:
+        arena.slot_of = dict(directory.slot_of)
+        arena.region_of = list(directory.region_of)
+        arena.free_slots = list(directory.free_slots)
+        arena.last_used = np.array(directory.last_used, dtype=np.int64)
+        arena.batch_counter = int(directory.batch_counter)
+        arena.stats = dict(directory.stats)
+        for key, slot in arena.slot_of.items():
+            arena.table.insert(key, slot)
+    return arena
+
+
+def _region_untouched(pulled: dict) -> bool:
+    """True when every pulled (host-valued) layer still holds its clear
+    value: +inf occupancy, 0 elsewhere."""
+    for name, data in pulled.items():
+        if name == "occupancy":
+            if not np.all(np.isinf(data)):
+                return False
+        elif not np.all(data == 0):
+            return False
+    return True
+
+
+def _read_host_chunk(host_map, chunk, names) -> dict:
+    """A host chunk's values of the arena layers ``names`` its map has."""
+    lay = host_map.layout
+    out = {}
+    for name in names:
+        if name in _HOST_MEMBERS:
+            layer, member = _HOST_MEMBERS[name]
+            idx = lay.layer_index(layer)
+            if idx >= 0:
+                out[name] = np.ascontiguousarray(chunk.layers[idx][member])
+        elif name == "cov":
+            idx = lay.layer_index(layoutmod.COVARIANCE_LAYER)
+            if idx >= 0:
+                arr = chunk.layers[idx]
+                out[name] = np.stack([arr[m] for m in _COV_MEMBERS], axis=-1)
+        elif name == "intensity":
+            idx = lay.layer_index(layoutmod.INTENSITY_LAYER)
+            if idx >= 0:
+                arr = chunk.layers[idx]
+                out[name] = np.stack([arr["mean"], arr["cov"]], axis=-1)
+    return out
+
+
+def _write_host_chunk(host_map, chunk, pulled: dict):
+    """Store a slot's host-valued layers into a host chunk."""
+    lay = host_map.layout
+    for name, data in pulled.items():
+        if name in _HOST_MEMBERS:
+            layer, member = _HOST_MEMBERS[name]
+            idx = lay.layer_index(layer)
+            if idx >= 0:
+                chunk.layers[idx][member] = data
+        elif name == "cov":
+            idx = lay.layer_index(layoutmod.COVARIANCE_LAYER)
+            if idx >= 0:
+                for j, m in enumerate(_COV_MEMBERS):
+                    chunk.layers[idx][m] = data[:, j]
+        elif name == "intensity":
+            idx = lay.layer_index(layoutmod.INTENSITY_LAYER)
+            if idx >= 0:
+                chunk.layers[idx]["mean"] = data[:, 0]
+                chunk.layers[idx]["cov"] = data[:, 1]

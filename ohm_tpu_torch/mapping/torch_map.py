@@ -19,6 +19,12 @@ raises NotImplementedError): map layers other than occupancy,
 STOP_ON_FIRST_OCCUPIED, the asynchronous worker, and batches outside the
 rayflow envelope (the reference's segmented wire).  The TPU levers (fused,
 delta, chained and monolith dispatch, scatter windows) are not ported.
+
+Subclasses (mapping.ndt_map.TorchNdtMap) override the hooks: the layer
+check ``_check_layers``, the arena's layers ``_arena_layers``, the wire's
+intensity block ``_rayflow_intensity``, the device step
+``_integrate_device`` under ``_dispatch``, and the stats ``_STAT_NAMES``
+summed by ``_drain_stats``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,11 @@ MAX_CAPACITY = 8191
 class TorchRayMapper:
     """Occupancy ray integrator over a device voxel arena."""
 
+    #: The wire carries a per-ray intensity block.
+    _rayflow_intensity = False
+    #: Per-batch device stats summed into ``stats`` by _drain_stats.
+    _STAT_NAMES = ("missed_updates", "overflow", "compaction_dropped")
+
     def __init__(self, map_obj, capacity: int = 1024, validate: bool = False,
                  stream_budget: int = 1 << 21, device="cuda"):
         self.device = resolve_device(device)
@@ -60,16 +71,13 @@ class TorchRayMapper:
         self.region_shift = int(dims[0]).bit_length() - 1
         self.validate = validate
 
-        others = [layer.name for layer in map_obj.layout.layers
-                  if layer.name != OCCUPANCY_LAYER]
-        if others:
-            raise NotImplementedError(
-                f"map layers other than occupancy are not ported yet: {others}")
+        self._check_layers(map_obj)
         if capacity > MAX_CAPACITY:
             raise ValueError(
                 f"capacity {capacity} > {MAX_CAPACITY} needs the segmented "
                 f"wire, which is not ported yet")
-        self.arena = VoxelArena(capacity, self.region_shift, self.device)
+        names, encoding = self._arena_layers()
+        self.arena = VoxelArena(capacity, self.region_shift, self.device, names, encoding)
         self._config(0)  # validate int32 addressing headroom at construction
         # Monotone shape caches (step bucket, walk cap, group cap, K):
         # grow only, as the reference's compile-shape caches do.
@@ -79,7 +87,20 @@ class TorchRayMapper:
         self._cap_cache_rf = 0
         self._stats = {"rays": 0, "segments": 0, "batches": 0, "missed_updates": 0,
                        "overflow": 0, "dropped_updates": 0, "compaction_dropped": 0}
+        self._stats.update({k: 0 for k in self._STAT_NAMES})
         self._pending_stats = []
+
+    def _check_layers(self, map_obj) -> None:
+        """Raise for map layers this mapper does not integrate."""
+        others = [layer.name for layer in map_obj.layout.layers
+                  if layer.name != OCCUPANCY_LAYER]
+        if others:
+            raise NotImplementedError(
+                f"map layers other than occupancy are not ported yet: {others}")
+
+    def _arena_layers(self) -> tuple[list[str], str]:
+        """The arena's layers and its occupancy encoding."""
+        return ["occupancy"], "zero"
 
     def prime_caps(self, batches) -> None:
         """Host-only pass seeding the monotone shape caches (group cap, step
@@ -148,8 +169,8 @@ class TorchRayMapper:
         perm = snake_perm(rf.crossings, G) if snake else None
         fdict = frac_dict_of(rf)
         wire = rayflow_wire(rf, self.arena.table, with_touch=False,
-                            with_intensity=False, cdict=cdict, fdict=fdict,
-                            perm=perm)
+                            with_intensity=self._rayflow_intensity, cdict=cdict,
+                            fdict=fdict, perm=perm)
         cap = self._rayflow_group_cap(rf.crossings, G, snake, perm=perm)
         self._cap_cache_rf = max(self._cap_cache_rf, cap)
         cfg = self._config(ray_update_flags, group_cap=self._cap_cache_rf,
@@ -182,6 +203,7 @@ class TorchRayMapper:
             walk_cap=walk_cap,
             rayw_cdict=rayw_cdict,
             rayw_fdict=rayw_fdict,
+            rayw_intensity=self._rayflow_intensity,
         )
 
     def integrate_rays(self, rays, intensities=None, timestamps=None,
@@ -261,10 +283,9 @@ class TorchRayMapper:
         return self._dispatch(torch.from_numpy(wire).to(self.device), cfg, n_rays)
 
     def _dispatch(self, wire: torch.Tensor, cfg: IntegrateConfig, n_rays: int) -> int:
-        """Run expand + sort + deposit on a wire already on the device; the
-        arena updates in place and the stats stay on the device until read."""
-        records, stats = expand_records(unpack_batch(wire, cfg), cfg)
-        stats["touched"] = apply_records(self.arena.occupancy, records, cfg)
+        """Decode a wire already on the device and integrate it; the arena
+        updates in place and the stats stay on the device until read."""
+        stats = self._integrate_device(unpack_batch(wire, cfg), cfg)
         self._stats["rays"] += n_rays
         self._stats["segments"] += n_rays
         self._stats["batches"] += 1
@@ -278,12 +299,22 @@ class TorchRayMapper:
                     raise RuntimeError(f"{name}={self._stats[name]}: {what}")
         return n_rays
 
-    def _drain_stats(self):
-        for stats in self._pending_stats:
-            self._stats["missed_updates"] += int(stats["missed_updates"])
-            self._stats["overflow"] += int(stats["overflow"])
-            self._stats["compaction_dropped"] += int(stats["compaction_dropped"])
+    def _integrate_device(self, b: dict, cfg: IntegrateConfig) -> dict:
+        """Expand + sort + deposit of one decoded batch; returns its stats."""
+        records, stats = expand_records(b, cfg)
+        stats["touched"] = apply_records(self.arena.occupancy, records, cfg)
+        return stats
+
+    def _drain_stats(self) -> list[dict]:
+        """Read the pending batches' stats back and sum _STAT_NAMES into
+        ``stats``.  Returns the drained per-batch values (ints)."""
+        drained = [{k: int(stats[k]) for k in self._STAT_NAMES}
+                   for stats in self._pending_stats]
+        for stats in drained:
+            for k, v in stats.items():
+                self._stats[k] += v
         self._pending_stats.clear()
+        return drained
 
     def sync_voxels(self):
         """Flush device voxel state into the host OccupancyMap (GpuMap::syncVoxels)."""

@@ -1,3 +1,4 @@
-"""Device operations of the port: wire decode, walk, expand and apply phases,
-and the two hand-written CUDA kernels (``expand_cuda``, ``deposit_cuda``)
-with their plain PyTorch versions."""
+"""Device operations of the port: wire decode, walk, the occupancy and NDT
+integration phases, and the hand-written CUDA kernels (``expand_cuda`` K1,
+``deposit_cuda`` K2 and K3, ``gather_cuda`` K4) with their plain PyTorch
+versions."""

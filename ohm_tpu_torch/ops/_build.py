@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``ohm_tpu_torch/csrc``).
 
-nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for Hopper (``sm_90a``), on first use; ctypes loads it.  Every
+nvcc compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) on first use, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface; ctypes loads it.  Every
 pointer and the stream cross as ``c_void_p`` (a bare int would be cut to
 32 bits).  Each C entry point returns ``cudaGetLastError()`` after its
 launches, and ``check`` raises when that is not 0: a refused launch never
@@ -30,21 +31,28 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libohm_tpu_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu (extern "C"); every entry returns a cudaError_t.
 _SIGNATURES = {
-    # fray, iray, gmeta, key, missed, B, S, K, shift, v, sentinel,
-    # exclude_origin, stream
-    "ohm_expand_keys": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # fray, iray, gmeta, key, vox (or null), missed, B, S, K, shift, v,
+    # sentinel, exclude_origin, stream
+    "ohm_expand_keys": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # occupancy, keys, n_keys, hit, miss, n_vox, flags, hit_value,
     # miss_value, threshold, min_value, max_value, saturation_min,
     # saturation_max, touched, stream
     "ohm_deposit_and_sweep": [_P, _P, _I, _P, _P, _I, _I,
                               _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    # occupancy, walk_keys, n_walk, end_keys, n_end, dkeys (or null), dvals,
+    # n_delta, delta plane, hit, miss, n_vox, hit_value, miss_value,
+    # min_value, max_value, saturation_min, saturation_max, touched, stream
+    "ohm_deposit_and_sweep_ndt": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I,
+                                  _F, _F, _F, _F, _F, _F, _P, _P],
+    # plane, ids, n, sentinel, out, stream
+    "ohm_gather_plane": [_P, _P, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -72,15 +80,31 @@ def build(force: bool = False, verbose: bool = False) -> tuple[float, str]:
             os.path.getmtime(s) for s in srcs):
         return 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o") for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []), "-c", src, "-o", obj],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)]
+    log, failed = [], []
+    for src, proc in zip(srcs, procs):
+        out, _ = proc.communicate(timeout=900)
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = f"{LIB_PATH}.{tag}.tmp"
+    link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                          capture_output=True, text=True, timeout=300)
+    for obj in objs:
+        os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
     os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+    return time.perf_counter() - t0, "".join(log) + link.stdout + link.stderr
 
 
 def load() -> ctypes.CDLL:

@@ -1,11 +1,15 @@
-"""Static configuration of one integrate call (occupancy, rayflow wire).
+"""Static configuration of one integrate call (rayflow wire).
 
-Counterpart of ``IntegrateConfig`` in ``ohm_tpu/ops/integrate.py``, holding
-only the fields the port's path reads.  The TPU switches (``scatter_cap``,
-``row_cap``, ``pallas_*``, the scatter tail) and the layers the port does not
-have yet (mean, traversal, touch time, incident, TSDF) are left out.  The
-arena encodes "unobserved" as -0.0 (the reference's ``zero_unobserved``
-mode), always.
+``IntegrateConfig`` is the counterpart of ``IntegrateConfig`` in
+``ohm_tpu/ops/integrate.py``, holding only the fields the port's path reads.
+The TPU switches (``scatter_cap``, ``row_cap``, ``pallas_*``, the scatter
+tail) and the layers the port does not have yet (traversal, touch time,
+incident, TSDF) are left out.  ``NdtConfig`` is the counterpart of
+``ohm_tpu/ops/integrate_ndt.py`` ``NdtConfig``.
+
+The occupancy path's arena encodes "unobserved" as -0.0 (the reference's
+``zero_unobserved`` mode); the NDT path's arena keeps +inf, as the
+reference's NDT arena does.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ class IntegrateConfig:
     #: a 2048-entry dict (2); start_frac as a 256-entry dict + u8 index.
     rayw_cdict: int = 0
     rayw_fdict: bool = False
+    #: The wire carries a per-ray f32 intensity block (the NDT mappers).
+    rayw_intensity: bool = False
 
     def __post_init__(self):
         # Flat arena addresses and sort keys are int32; the key packs
@@ -62,3 +68,19 @@ class IntegrateConfig:
     @property
     def sentinel(self) -> int:
         return self.capacity * self.voxels_per_region
+
+
+@dataclasses.dataclass(frozen=True)
+class NdtConfig:
+    """Static NDT parameters layered over the base integrate config."""
+
+    base: IntegrateConfig
+    sensor_noise: float = 0.05
+    sample_threshold: int = 3
+    adaptation_rate: float = 0.4
+    reinit_threshold: float = -1.3862944  # probabilityToValue(0.2)
+    reinit_count: int = 100
+    initial_intensity_covariance: float = 1.0
+    ndt_tm: bool = False
+    #: Budget of Gaussian-bearing miss records per batch (the K stream).
+    miss_k: int = 1 << 16

@@ -44,8 +44,10 @@ def _prelude(b: dict, cfg: IntegrateConfig):
     return e0, dd, safe_inverse(dd), step_dir, n_ax, aux
 
 
-def expand_keys_reference(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False):
-    """Plain PyTorch K1: (flat i32[B,3S], missed count i32 0-dim).
+def expand_keys_reference(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
+                          with_vox: bool = False):
+    """Plain PyTorch K1: (flat i32[B,3S], missed count i32 0-dim), and with
+    ``with_vox`` a third item, the voxel planes i32[B,3S,3] (walk["voxels"]).
 
     flat is the record's arena id, or the sentinel where the record is
     invalid, unresolved (missed) or the excluded origin voxel."""
@@ -60,7 +62,10 @@ def expand_keys_reference(b: dict, cfg: IntegrateConfig, exclude_origin: bool = 
         rec_valid = rec_valid & ~(walk["first"] & b["exclude_start"][:, None])
     flat, missed = resolve_slots(walk["voxels"], cfg, b["tcand"], b["gmeta"])
     flat = torch.where(rec_valid, flat, torch.full_like(flat, cfg.sentinel))
-    return flat, (rec_valid & missed).sum().to(torch.int32)
+    missed_n = (rec_valid & missed).sum().to(torch.int32)
+    if with_vox:
+        return flat, missed_n, walk["voxels"]
+    return flat, missed_n
 
 
 def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
@@ -69,15 +74,21 @@ def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
 
     Returns (flat i32[B,3S], aux) with aux = {missed_n (i32 0-dim),
     overflow bool[B], end_enter f32[B]}; flat as expand_keys_reference's.
-    The traversal and voxel-plane outputs of the reference kernel serve the
-    traversal layer, NDT and TSDF, which the port does not have yet."""
-    if with_trav or with_vox:
-        raise NotImplementedError("expand_keys: with_trav / with_vox outputs")
+    ``with_vox`` adds aux["vox"] i32[B,3S,3], each record's absolute voxel,
+    as in the reference: it equals the plain version's walk["voxels"] on
+    every lane whose key is not the sentinel, and is unspecified elsewhere.
+    The traversal output serves the traversal layer, which the port does
+    not have yet."""
+    if with_trav:
+        raise NotImplementedError("expand_keys: with_trav output (traversal layer)")
     e0, dd, inv, step_dir, n_ax, aux = _prelude(b, cfg)
     start_abs = b["start_abs"]
     if start_abs.device.type == "cpu":
-        flat, aux["missed_n"] = expand_keys_reference(b, cfg, exclude_origin)
-        return flat, aux
+        out = expand_keys_reference(b, cfg, exclude_origin, with_vox=with_vox)
+        aux["missed_n"] = out[1]
+        if with_vox:
+            aux["vox"] = out[2]
+        return out[0], aux
 
     B, S, K = start_abs.shape[0], cfg.max_steps, b["tcand"].shape[1]
     if K > MAX_K:
@@ -88,14 +99,19 @@ def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
                      dim=1).to(torch.int32).contiguous()
     gmeta = b["gmeta"][0:3].to(torch.int32).contiguous()
     key = torch.empty((B, 3 * S), dtype=torch.int32, device=start_abs.device)
+    vox = (torch.empty((3, B, 3 * S), dtype=torch.int32, device=start_abs.device)
+           if with_vox else None)
     missed = torch.zeros(1, dtype=torch.int32, device=start_abs.device)
     rc = _build.load().ohm_expand_keys(
         fray.data_ptr(), iray.data_ptr(), gmeta.data_ptr(), key.data_ptr(),
-        missed.data_ptr(), B, S, K, cfg.region_shift, cfg.voxels_per_region,
-        cfg.sentinel, int(exclude_origin), _build.stream_of(key))
+        vox.data_ptr() if with_vox else None, missed.data_ptr(), B, S, K,
+        cfg.region_shift, cfg.voxels_per_region, cfg.sentinel,
+        int(exclude_origin), _build.stream_of(key))
     _build.check(rc, "expand_keys")
     expand_keys.launches += 1
     aux["missed_n"] = missed[0]
+    if with_vox:
+        aux["vox"] = vox.permute(1, 2, 0)  # [B, 3S, 3] view of the planes
     return key, aux
 
 

@@ -7,12 +7,13 @@ Counterpart of the rayflow branch of ``_unpack_batch`` in
 
   gmeta i32[8] | floats f32[R,7] (start_frac, direction, length), or f32[R,4]
   (direction, length) under the start_frac dictionary | abs16 u16[R,6] |
-  [frac dict f32[256,3] + frac idx u8[R]] | candidates
+  [intensity f32[R]] | [frac dict f32[256,3] + frac idx u8[R]] | candidates
 
-The occupancy wire carries no touch-time or intensity block.  abs16 words
-hold 11-bit bbox-relative endpoint voxel coords; their 5 spare high bits
-carry valid, fold (end-as-miss) and the 16-bit source ray index (which
-the occupancy path does not read).
+The intensity block rides on the NDT wire (``cfg.rayw_intensity``); the
+port's wires carry no touch-time block.  abs16 words hold 11-bit
+bbox-relative endpoint voxel coords; their 5 spare high bits carry valid,
+fold (end-as-miss) and the 16-bit source ray index ``ray_order`` (the host
+may permute wire rows; order-sensitive consumers key on it).
 Candidates are i32[R,K] ((slot+1) << 18 | bbox-relative region), or a
 dictionary of packed candidates with u8 (cdict 1) or u16 (cdict 2) indices.
 """
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ohm_tpu_torch.ops.config import IntegrateConfig
+from ohm_tpu_torch.ops.ddawalk import f32
 
 
 def _view(part: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
@@ -38,15 +40,17 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
     cdict = int(cfg.rayw_cdict)
     fdict = bool(cfg.rayw_fdict)
     fw = 4 if fdict else 7
+    intens_bpr = 4 if cfg.rayw_intensity else 0
     cand_bpr = {0: 4 * K, 1: K, 2: 2 * K}[cdict]
     cand_fixed = {0: 0, 1: 1024, 2: 8192}[cdict]
-    bpr = 4 * fw + 12 + (1 if fdict else 0) + cand_bpr
+    bpr = 4 * fw + 12 + intens_bpr + (1 if fdict else 0) + cand_bpr
     fixed = 32 + cand_fixed + (3072 if fdict else 0)
     R = (buf.shape[0] - fixed) // bpr
     if R <= 0 or R * bpr + fixed != buf.shape[0]:
         raise ValueError(
             f"wire of {buf.shape[0]} bytes does not match the layout "
-            f"(K={K}, cdict={cdict}, fdict={fdict})")
+            f"(K={K}, cdict={cdict}, fdict={fdict}, "
+            f"intensity={cfg.rayw_intensity})")
     off = 0
 
     def take(nbytes):
@@ -61,6 +65,8 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
     a16raw = _view(take(12 * R), torch.int16, (R, 6)).to(torch.int32) & 0xFFFF
     a16 = a16raw & 0x7FF
     hi = a16raw >> 11
+    intensity = (_view(take(4 * R), torch.float32, (R,)) if intens_bpr
+                 else torch.zeros(R, dtype=torch.float32, device=buf.device))
     if fdict:
         frac_tab = _view(take(3072), torch.float32, (256, 3))
         fidx = take(R).long()
@@ -85,16 +91,25 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
         direction = floats[:, 3:6]
         length = floats[:, 6]
         start_frac = floats[:, 0:3]
+    start_abs = a16[:, 0:3] + bbox_min_vox[None, :]
+    end_abs = a16[:, 3:6] + bbox_min_vox[None, :]
+    # Separate ops, each rounded once, in the reference's order.
+    end_frac = start_frac + (start_abs - end_abs).to(torch.float32) * f32(cfg.resolution)
+    end_frac = end_frac + length[:, None] * direction
+    ray_order = (hi[:, 0] >> 2) | (hi[:, 1] << 3) | (hi[:, 2] << 8) | (hi[:, 3] << 13)
     return {
-        "start_abs": a16[:, 0:3] + bbox_min_vox[None, :],
-        "end_abs": a16[:, 3:6] + bbox_min_vox[None, :],
+        "start_abs": start_abs,
+        "end_abs": end_abs,
         "start_frac": start_frac,
+        "end_frac": end_frac,
         "direction": direction,
         "length": length,
         "is_sample": valid & ~fold,
         "end_as_miss": valid & fold,
         "exclude_start": valid,  # every ray record contains its origin
         "valid": valid,
+        "intensity": intensity,
         "tcand": tcand,
         "gmeta": gmeta,
+        "ray_order": ray_order,
     }

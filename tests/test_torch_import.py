@@ -31,6 +31,15 @@ mapper = ohm_tpu_torch.TorchRayMapper(m, capacity=64, validate=True, device="cpu
 assert mapper.integrate_rays(rays) == 64
 mapper.sync_voxels()
 assert mapper.stats["batches"] == 1 and len(m.chunks) > 0
+from ohm_tpu.oracle.ndt import NdtParams
+for tm in (False, True):
+    m = OccupancyMap(resolution=0.1)
+    ndt = ohm_tpu_torch.TorchNdtMap(m, NdtParams(ndt_tm=tm), capacity=64, validate=True,
+                                    device="cpu")
+    for _ in range(2):
+        ndt.integrate_rays(rays, intensities=rng.uniform(0, 1, 64))
+    ndt.sync_voxels()
+    assert ndt.stats["batches"] == 2 and len(m.chunks) > 0
 print("jax" in sys.modules)
 """
 
@@ -85,9 +94,32 @@ def test_what_is_not_ported_raises():
         fine.integrate_rays(np.array([[0.0, 0.0, 0.0], [40.0, 0.0, 0.0]]))
 
 
+def test_what_is_not_ported_under_ndt_raises():
+    from ohm_tpu.oracle.ndt import NdtParams
+    from ohm_tpu_torch import TorchNdtMap
+    from ohm_tpu_torch.ops.expand_cuda import expand_keys
+
+    for flag in (MapFlag.TRAVERSAL, MapFlag.TOUCH_TIME, MapFlag.INCIDENT_NORMAL):
+        with pytest.raises(NotImplementedError, match="NDT"):
+            TorchNdtMap(OccupancyMap(resolution=0.1, flags=flag), capacity=64, device="cpu")
+    # NDT-OM refuses the NDT-TM layers it does not update.
+    m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
+    m.layout.add_intensity()
+    with pytest.raises(NotImplementedError, match="intensity"):
+        TorchNdtMap(m, NdtParams(), capacity=64, device="cpu")
+    mapper = TorchNdtMap(OccupancyMap(resolution=0.1, flags=MapFlag.NONE), capacity=64,
+                         device="cpu")
+    assert mapper.arena.occupancy_encoding == "inf"
+    assert torch.isposinf(mapper.arena.occupancy).all()
+    with pytest.raises(NotImplementedError):
+        mapper.integrate_rays_async(np.zeros((2, 3)))
+    with pytest.raises(NotImplementedError, match="with_trav"):
+        expand_keys({}, mapper._config(0), with_trav=True)
+
+
 def test_build_takes_every_cuda_source_for_hopper():
     names = sorted(os.path.basename(p) for p in _build.sources())
-    assert names == ["common.cu", "deposit.cu", "expand.cu"]
+    assert names == ["common.cu", "deposit.cu", "expand.cu", "gather.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags and "fast_math" not in flags

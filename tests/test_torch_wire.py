@@ -104,6 +104,37 @@ def test_unpack_batch_bit_identical(prepared, cdict, fdict):
         assert np.array_equal(a, b.astype(a.dtype)), name
 
 
+def test_unpack_ndt_wire_with_intensity_bit_identical():
+    """The NDT wire: an intensity block after abs16, the source ray order
+    from abs16's spare bits and end_frac, every field bit for bit."""
+    from ohm_tpu.mapping.ndt_map import TpuNdtMap
+    from ohm_tpu.oracle.ndt import NdtParams
+    from ohm_tpu_torch import TorchNdtMap
+
+    rng = np.random.default_rng(12)
+    rays = _rays(300, rng, spread=5.0)
+    intens = rng.uniform(0.0, 100.0, 300).astype(np.float32)
+    ref = TpuNdtMap(OccupancyMap(resolution=0.1, flags=MapFlag.NONE),
+                    NdtParams(ndt_tm=True), capacity=64)
+    port = TorchNdtMap(OccupancyMap(resolution=0.1, flags=MapFlag.NONE),
+                       NdtParams(ndt_tm=True), capacity=64, device="cpu")
+    w_ref, c_ref, _ = ref._rayflow_setup_host(rays, None, intens, 0)
+    w_port, c_port, _ = port._rayflow_setup_host(rays, None, intens, 0)
+    assert np.array_equal(w_ref, w_port)
+    assert c_ref.rayw_intensity and c_port.rayw_intensity
+    jb = _unpack_batch({"rayw": jnp.asarray(w_ref)}, c_ref)
+    pb = unpack_batch(torch.from_numpy(w_port), c_port)
+    for name in ("intensity", "ray_order", "end_frac", "start_abs", "tcand", "valid"):
+        a, b = np.asarray(jb[name]), pb[name].numpy()
+        if a.dtype == np.float32:
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        assert np.array_equal(a, b.astype(a.dtype)), name
+    # Snake ordering permutes the rows; ray_order maps them back.
+    order = pb["ray_order"].numpy()[pb["valid"].numpy()]
+    assert sorted(order) == list(range(300)) and not np.array_equal(order, np.arange(300))
+    assert np.array_equal(pb["intensity"].numpy()[pb["valid"].numpy()], intens[order])
+
+
 def test_unpack_rejects_a_wire_of_the_wrong_layout(prepared):
     (wire, _), table_k = _wires(prepared, 1, True)
     m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
