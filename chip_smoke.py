@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the ohm_tpu_torch occupancy, NDT and TSDF paths once on one NVIDIA GPU.
+"""Drive the ohm_tpu_torch occupancy (with and without its side layers), NDT
+and TSDF paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
 
@@ -26,6 +27,37 @@ exit code is not 0 and no result line is printed:
                per batch and per stage, each kernel beside its plain version,
                and (the "profile" line) torch.profiler's device time by
                kernel and the device's idle share over 8 batches
+  k1_trav      the expand kernel's traversal output (the traversal layer's
+               with_trav), alone and beside the voxel planes, against its
+               plain version on the box, corner and miss scenes: keys,
+               traversal and missed counts bit-identical on every lane
+  layers_hardware_differential
+               TorchRayMapper with the voxel-mean, traversal, touch-time and
+               incident-normal layers on a 1024-ray box scan given twice in
+               four timestamped batches: against the f64 oracle (occupancy
+               under bench.py's gate; mean counts equal, mean positions
+               within 2e-3, traversal within atol 2e-3 / rtol 1e-3 as
+               tests/test_tpu_integrate.py; touch times within 0.002 s;
+               incident reported as the worst angle), against the port on
+               the CPU (occupancy, counts and touch times bit-identical,
+               traversal within atol = rtol = 1e-5, mean and normal codes
+               identical on >= 99.9% of written voxels and within one
+               quantum elsewhere), and bit-identical between two card runs
+  occupancy_layers_rays_per_sec
+               bench.py's configuration with all four side layers and
+               per-ray timestamps (a 512-slot arena of 24 bytes a voxel),
+               40 timed synchronous batches after 4 warm-up; host prep,
+               device time per batch and per stage, host syncs per batch,
+               launches, a profile line and the peak allocation; before it
+               (the "layers_kernel_checks" line) K1 with traversal and K2 on
+               the arguments this path gave them in one batch, each against
+               its plain version bit for bit
+  occupancy_mean_outdoor_rays_per_sec
+               scripts/bench_modes.py config 2: occupancy + voxel mean at
+               0.2 m, a 1024-slot arena, 12 synthetic outdoor 8192-ray
+               batches (rng seed 7), warmed up and timed through
+               integrate_rays_async + flush as its timed_integration does;
+               host prep, device time, host syncs, launches, a profile line
   k1_vox       the expand kernel's voxel planes (the NDT path's with_vox)
                against the plain walk's voxels on the box, corner and miss
                scenes, on every lane whose key is not the sentinel, bit for
@@ -101,14 +133,18 @@ import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ohm_tpu_torch import TorchNdtMap, TorchRayMapper, TorchTsdfMap, native
+from ohm_tpu_torch.core import subvoxel
 from ohm_tpu_torch.core.layout import (COVARIANCE_LAYER, HIT_MISS_COUNT_LAYER,
-                                       INTENSITY_LAYER, MEAN_LAYER, OCCUPANCY_LAYER,
+                                       INCIDENT_NORMAL_LAYER, INTENSITY_LAYER, MEAN_LAYER,
+                                       OCCUPANCY_LAYER, TOUCH_TIME_LAYER, TRAVERSAL_LAYER,
                                        TSDF_LAYER)
 from ohm_tpu_torch.core.map import MapFlag, OccupancyMap
 from ohm_tpu_torch.core.rayflags import RayFlag
@@ -116,7 +152,7 @@ from ohm_tpu_torch.oracle.ndt import NdtParams, RayMapperNdt
 from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
 from ohm_tpu_torch.oracle.tsdf import RayMapperTsdf, TsdfOptions
 from ohm_tpu_torch.ops import _build, deposit_cuda, expand_cuda, gather_cuda
-from ohm_tpu_torch.ops.integrate import expand_records
+from ohm_tpu_torch.ops.integrate import apply_records, apply_sample_layers, expand_records
 from ohm_tpu_torch.ops.wire import unpack_batch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -140,6 +176,16 @@ TM_MISS_K = 1 << 15
 TSDF_CAPACITY = 1024
 TSDF_BATCHES = 12
 TSDF_WARMUP = 6
+# The occupancy mapper's side layers (bench.py's configuration with them).
+LAYER_FLAGS = (MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL | MapFlag.TOUCH_TIME
+               | MapFlag.INCIDENT_NORMAL)
+# scripts/bench_modes.py config 2 (occupancy + voxel mean, outdoor): rng seed
+# 7, 12 batches, warmed up through 6 synchronous batches and one async pass.
+OUTDOOR_SEED = 7
+OUTDOOR_RESOLUTION = 0.2
+OUTDOOR_CAPACITY = 1024
+OUTDOOR_BATCHES = 12
+OUTDOOR_WARMUP = 6
 # Port on the card against the port on the CPU.
 PORT_TOL = {"atol": 1e-5, "rtol": 1e-5, "mean_code_identical": 0.999}
 # One H100 SXM (NVIDIA's data sheet): HBM rate, and the f32 rate outside the
@@ -176,6 +222,23 @@ def corner_scene_rays(n, rng, spread=5.0):
     rays = np.zeros((2 * n, 3))
     rays[0::2] = origins
     rays[1::2] = origins + dirs * lengths[:, None]
+    return rays
+
+
+def outdoor_rays(n, rng, extent=40.0, sensor_height=1.5):
+    """An outdoor-like lidar frame: a ground plane and the extent's ring from
+    a sensor 1.5 m up, mostly level and downward (scripts/bench_modes.py
+    outdoor_rays, config 2)."""
+    az = rng.uniform(0, 2 * np.pi, n)
+    el = rng.uniform(-0.35, 0.15, n)
+    dirs = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], axis=1)
+    sensor = np.array([0.0, 0.0, sensor_height])
+    t_ground = np.where(dirs[:, 2] < -1e-3, -sensor_height / dirs[:, 2], np.inf)
+    t = np.minimum(t_ground, extent / np.maximum(np.linalg.norm(dirs[:, :2], axis=1), 1e-6))
+    t = np.clip(t, 0.5, extent)
+    rays = np.empty((2 * n, 3))
+    rays[0::2] = sensor
+    rays[1::2] = sensor + dirs * t[:, None]
     return rays
 
 
@@ -224,16 +287,62 @@ def finite_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-def k1_bound(b: dict, cfg, with_vox: bool) -> dict:
+def k1_bound(b: dict, cfg, with_vox: bool, with_trav: bool = False) -> dict:
     """K1's bound: per ray 9 f32 and 10 + K i32 of input; per lane (3S a
-    ray) a 4-byte key, and 12 bytes of voxel planes with ``with_vox``;
-    ~90 + 4K operations a lane (counted from csrc/expand.cu: the event time,
-    two rank probes with their binary advance, the packing and the K-way
-    candidate match)."""
+    ray) a 4-byte key, 12 bytes of voxel planes with ``with_vox`` and 4
+    bytes of traversal with ``with_trav``; ~90 + 4K operations a lane
+    (counted from csrc/expand.cu: the event time, two rank probes with their
+    binary advance, the packing and the K-way candidate match), and 24 more
+    with the traversal (three enter times, two compare-and-selects, the
+    subtraction and its validity select)."""
     B, S, K = b["start_abs"].shape[0], cfg.max_steps, b["tcand"].shape[1]
     lanes = B * 3 * S
-    return bound(B * (19 + K) * 4 + 12 + lanes * (16 if with_vox else 4) + 4,
-                 lanes * (90 + 4 * K))
+    per_lane = 4 + (12 if with_vox else 0) + (4 if with_trav else 0)
+    return bound(B * (19 + K) * 4 + 12 + lanes * per_lane + 4,
+                 lanes * (90 + 4 * K + (24 if with_trav else 0)))
+
+
+def count_host_syncs(fn) -> dict:
+    """Synchronizing CUDA calls made while ``fn`` runs, by the innermost
+    line of the repository's code that led to each: torch's sync debug mode
+    warns on every one (an upload from pageable memory, nonzero, item)."""
+    sites = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(REPO)]
+        at = (os.path.relpath(ours[-1].filename, REPO), ours[-1].lineno) if ours else (
+            filename, lineno)
+        sites[f"{at[0]}:{at[1]}"] = sites.get(f"{at[0]}:{at[1]}", 0) + 1
+
+    torch.cuda.synchronize()
+    # Enabling the mode may itself warn (seen once torch.profiler has run);
+    # only what ``fn`` does is recorded.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return {"count": sum(sites.values()), "sites": sites}
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Device time per call of the CUDA kernels whose name holds ``kernel``
+    while ``fn`` runs (torch.profiler): the kernel alone, without its
+    wrapper's PyTorch prelude."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if kernel in e.key)
+    return us / 1e3 / reps
 
 
 def phase_device() -> dict:
@@ -311,18 +420,9 @@ def phase_k1_vox(k1: dict) -> dict:
     """K1's voxel planes against the plain walk's voxels on non-sentinel lanes."""
     rows = []
     for name, b, cfg, flags in k1["cases"]:
-        excl = bool(flags & RayFlag.EXCLUDE_ORIGIN)
-        key_k, aux = expand_cuda.expand_keys(b, cfg, exclude_origin=excl, with_vox=True)
-        key_p, _, vox_p = expand_cuda.expand_keys_reference(b, cfg, exclude_origin=excl,
-                                                            with_vox=True)
-        torch.cuda.synchronize()
-        live = key_p != cfg.sentinel
-        vk, vp = aux["vox"][live], vox_p[live]
-        err = int((vk.long() - vp.long()).abs().max()) if vk.numel() else 0
-        ok = torch.equal(key_k, key_p) and torch.equal(vk, vp) and vk.numel() > 0
-        rows.append({"scene": name, "lanes_compared": int(live.sum()), "max_abs_err": err,
-                     "bit_identical": bool(ok)})
-        if not ok:
+        kw = {"exclude_origin": bool(flags & RayFlag.EXCLUDE_ORIGIN), "with_vox": True}
+        rows.append({"scene": name, **check_k1_call(((b, cfg), kw))})
+        if not rows[-1]["bit_identical"]:
             raise AssertionError(f"expand kernel's voxel planes differ on {name}: {rows[-1]}")
     emit({"phase": "k1_vox", "tolerance": 0, "cases": rows})
     return {"max_abs_err": max(r["max_abs_err"] for r in rows)}
@@ -486,8 +586,21 @@ def phase_hardware_differential() -> None:
     dev, port_cpu, ref = (_host_occupancy(m) for m in (maps["cuda"], maps["cpu"], cpu_map))
     bit_identical = dev.keys() == port_cpu.keys() and all(
         np.array_equal(dev[k].view(np.uint32), port_cpu[k].view(np.uint32)) for k in dev)
+    gate = occupancy_gate(ref, dev, int(np.prod(cpu_map.region_voxel_dims)))
+    ok = gate["ok"] and bit_identical
+    emit({"metric": "hardware_differential", **{k: v for k, v in gate.items() if k != "ok"},
+          "bit_identical_to_cpu": bool(bit_identical), "ok": bool(ok)})
+    if not ok:
+        raise AssertionError("GPU-vs-oracle differential failed")
+
+
+def occupancy_gate(ref: dict, dev: dict, n_vox: int) -> dict:
+    """bench.py's gate over region -> occupancy arrays: a voxel fails where
+    one side is unobserved (inf) and the other not, or both differ by more
+    than the tolerance; the failures' share and the worst difference are
+    bounded."""
     worst, failures, compared = 0.0, 0, 0
-    full = np.full(int(np.prod(cpu_map.region_voxel_dims)), np.inf, np.float32)
+    full = np.full(n_vox, np.inf, np.float32)
     for key in set(ref) | set(dev):
         a, b = ref.get(key, full), dev.get(key, full)
         inf_a, inf_b = np.isinf(a), np.isinf(b)
@@ -499,12 +612,9 @@ def phase_hardware_differential() -> None:
             worst = max(worst, float(diff.max()))
             failures += int((diff > GATE["tolerance"]).sum())
     ok = (compared > 0 and failures <= GATE["allowed_ratio"] * compared
-          and worst <= GATE["worst_bound"] and bit_identical)
-    emit({"metric": "hardware_differential", "compared_voxels": compared,
-          "mismatches": failures, "worst_abs_diff": worst,
-          "bit_identical_to_cpu": bool(bit_identical), "ok": bool(ok)})
-    if not ok:
-        raise AssertionError("GPU-vs-oracle differential failed")
+          and worst <= GATE["worst_bound"])
+    return {"compared_voxels": compared, "mismatches": failures, "worst_abs_diff": worst,
+            "ok": bool(ok)}
 
 
 def plane_rays(n, rng, z=0.0, extent=1.0, sensor=(0.0, 0.0, 2.0)):
@@ -684,14 +794,16 @@ def phase_ndt_hardware_differential() -> None:
         raise AssertionError("NDT GPU differential failed")
 
 
-def profile_main_path(mapper, batches, path: str = "occupancy", intens=None) -> None:
+def profile_main_path(mapper, batches, path: str = "occupancy", intens=None,
+                      stamps=None) -> None:
     """torch.profiler over synchronous integrate_rays calls: device time by
     kernel and the device's idle share of the window."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i, b in enumerate(batches):
-            mapper.integrate_rays(b, intensities=None if intens is None else intens[i])
+            mapper.integrate_rays(b, intensities=None if intens is None else intens[i],
+                                  timestamps=None if stamps is None else stamps[i])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -741,20 +853,9 @@ def phase_bench(k1: dict) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
-    # Host prep alone (the arena already holds every region).
-    t0 = time.perf_counter()
-    setups = [mapper._rayflow_setup_host(b, None, None, 0) for b in batches]
-    host_prep_ms = (time.perf_counter() - t0) / N_BATCHES * 1e3
-    wires = [torch.from_numpy(w).cuda() for w, _, _ in setups]
-    torch.cuda.synchronize()
-
-    # Device only: dispatch on resident wires; then the same with events
-    # around each stage.
-    t0 = time.perf_counter()
-    for w, (_, cfg, n) in zip(wires, setups):
-        mapper._dispatch(w, cfg, n)
-    torch.cuda.synchronize()
-    device_ms = (time.perf_counter() - t0) / N_BATCHES * 1e3
+    # Host prep alone, the device path on resident wires, then the same
+    # with events around each stage.
+    host_prep_ms, device_ms, wires, setups = device_and_host_ms(mapper, batches)
     occ = mapper.arena.occupancy
     stage = {"expand": 0.0, "sort": 0.0, "deposit": 0.0}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -805,6 +906,390 @@ def phase_bench(k1: dict) -> dict:
     return {"launches": launches, "ms": {"expand_keys": k1_kern, "deposit_and_sweep": k2_kern},
             "plain_ms": {"expand_keys": k1_plain, "deposit_and_sweep": k2_plain},
             "bound": bounds}
+
+
+def phase_k1_trav(k1: dict) -> dict:
+    """K1's traversal output, alone and beside the voxel planes, against its
+    plain version on the box, corner and miss scenes: bit for bit."""
+    rows = []
+    for name, b, cfg, flags in k1["cases"]:
+        for with_vox in (False, True):
+            kw = {"exclude_origin": bool(flags & RayFlag.EXCLUDE_ORIGIN), "with_trav": True,
+                  "with_vox": with_vox}
+            rows.append({"scene": name, "with_vox": with_vox, **check_k1_call(((b, cfg), kw))})
+            if not rows[-1]["bit_identical"]:
+                raise AssertionError(f"expand kernel's traversal differs on {name}: {rows[-1]}")
+    emit({"phase": "k1_trav", "tolerance": 0, "cases": rows})
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+#: Host layer -> its members, as the side-layer checks read them.
+LAYER_MEMBERS = {OCCUPANCY_LAYER: ("occupancy",), MEAN_LAYER: ("coord", "count"),
+                 TRAVERSAL_LAYER: ("traversal",), TOUCH_TIME_LAYER: ("touch",),
+                 INCIDENT_NORMAL_LAYER: ("packed_normal",)}
+
+
+def layer_members(m) -> dict:
+    """member -> {region: host array} over the occupancy map's layers."""
+    out = {member: {} for members in LAYER_MEMBERS.values() for member in members}
+    for layer, members in LAYER_MEMBERS.items():
+        li = m.layer_index(layer)
+        if li < 0:
+            continue
+        for key, c in m.chunks.items():
+            for member in members:
+                out[member][key] = np.array(c.layers[li][member])
+    return {k: v for k, v in out.items() if v}
+
+
+def layers_scene():
+    """bench.py's 1024-ray box scan (seed 2024) in four 256-ray batches with
+    per-ray timestamps.  (Given twice, the scan breaks bench.py's gate by
+    one miss on a voxel a batch both hits and misses: the batch merges its
+    counts where the oracle goes ray by ray, as tests/test_tpu_integrate.py
+    allows for.)"""
+    rays = box_scene_rays(1024, np.random.default_rng(SEED))
+    batches = [rays[i:i + 512] for i in range(0, 2048, 512)]
+    stamps = [100.0 + 10.0 * i + np.arange(256) * 1e-3 for i in range(4)]
+    return batches, stamps
+
+
+def run_layers(mapper):
+    """Integrate layers_scene into ``mapper``'s map; returns its stats."""
+    for rays, ts in zip(*layers_scene()):
+        mapper.integrate_rays(rays, timestamps=ts)
+    if hasattr(mapper, "sync_voxels"):
+        mapper.sync_voxels()
+        return mapper.stats
+    return None
+
+
+def code_agreement(a: dict, b: dict, fields) -> dict:
+    """Share of identical codes over voxels either side wrote, and the
+    largest difference in quanta of any packed (shift, mask) field."""
+    xs = [a[k][(a[k] != 0) | (b[k] != 0)] for k in a]
+    ys = [b[k][(a[k] != 0) | (b[k] != 0)] for k in a]
+    x, y = np.concatenate(xs).astype(np.int64), np.concatenate(ys).astype(np.int64)
+    steps = [int(np.abs(((x >> s) & m) - ((y >> s) & m)).max(initial=0)) for s, m in fields]
+    return {"written": int(x.size), "identical": float((x == y).mean()) if x.size else 1.0,
+            "max_quanta": max(steps)}
+
+
+MEAN_FIELDS = [(0, 1023), (10, 1023), (20, 1023), (31, 1)]
+NORMAL_FIELDS = [(0, 0x3FFF), (15, 0x3FFF), (30, 1), (31, 1)]
+
+
+def compare_layers_to_oracle(ref: dict, dev: dict, resolution: float, n_vox: int) -> dict:
+    """The port against the f64 oracle: occupancy under bench.py's gate;
+    mean counts equal, mean positions within 2e-3 and traversal within
+    atol 2e-3 / rtol 1e-3 (tests/test_tpu_integrate.py); touch times within
+    0.002 s (tests/test_occupancy_oracle.py); the incident normal reported
+    as the worst angle between the two (the reference merges a batch's
+    directions in one weighted sum, the oracle sample by sample)."""
+    row = {"occupancy": occupancy_gate(ref["occupancy"], dev["occupancy"], n_vox)}
+    ok = row["occupancy"]["ok"] and ref["count"].keys() <= dev["count"].keys()
+    mean_worst = trav_worst = touch_worst = angle_worst = 0.0
+    for key, count in ref["count"].items():
+        ok = ok and np.array_equal(count, dev["count"][key])
+        act = count > 0
+        ca = subvoxel.sub_voxel_to_local_coord(ref["coord"][key][act], resolution)
+        cb = subvoxel.sub_voxel_to_local_coord(dev["coord"][key][act], resolution)
+        if act.any():
+            mean_worst = max(mean_worst, float(np.abs(ca - cb).max()))
+        ta, tb = ref["traversal"][key], dev["traversal"][key]
+        ok = ok and np.allclose(tb, ta, atol=2e-3, rtol=1e-3)
+        trav_worst = max(trav_worst, float(np.abs(ta - tb).max()))
+        ua, ub = ref["touch"][key], dev["touch"][key]
+        ok = ok and np.array_equal(ua > 0, ub > 0)
+        touch_worst = max(touch_worst,
+                          float(np.abs(ua.astype(np.float64) - ub.astype(np.float64)).max()) * 1e-3)
+        na, nb = ref["packed_normal"][key], dev["packed_normal"][key]
+        both = (na != 0) & (nb != 0)
+        if both.any():
+            cos = np.sum(subvoxel.decode_normal(na[both]) * subvoxel.decode_normal(nb[both]), -1)
+            angle_worst = max(angle_worst,
+                              float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))).max()))
+    ok = ok and mean_worst <= 2e-3 and touch_worst <= 0.002
+    row.update(mean_worst_m=mean_worst, traversal_worst_m=trav_worst, touch_worst_s=touch_worst,
+               incident_worst_deg=angle_worst,
+               active_voxels=int(sum(int((c > 0).sum()) for c in ref["count"].values())),
+               ok=bool(ok))
+    return row
+
+
+def compare_layers_to_cpu(dev: dict, cpu: dict) -> dict:
+    """The port on the card against the port on the CPU: occupancy, mean
+    counts and touch times bit-identical; traversal within PORT_TOL; mean
+    and normal codes identical on >= 99.9% of written voxels and within one
+    quantum elsewhere."""
+    ok = all(dev[m].keys() == cpu[m].keys() for m in dev) and dev.keys() == cpu.keys()
+    for member in ("occupancy", "count", "touch"):
+        ok = ok and all(np.array_equal(dev[member][k].view(np.uint32), cpu[member][k].view(np.uint32))
+                        for k in dev[member])
+    trav_worst = max(float(np.abs(dev["traversal"][k] - cpu["traversal"][k]).max())
+                     for k in dev["traversal"])
+    ok = ok and all(np.allclose(dev["traversal"][k], cpu["traversal"][k], atol=PORT_TOL["atol"],
+                                rtol=PORT_TOL["rtol"]) for k in dev["traversal"])
+    mean = code_agreement(dev["coord"], cpu["coord"], MEAN_FIELDS)
+    normal = code_agreement(dev["packed_normal"], cpu["packed_normal"], NORMAL_FIELDS)
+    for codes in (mean, normal):
+        ok = ok and codes["identical"] >= PORT_TOL["mean_code_identical"] and codes["max_quanta"] <= 1
+    return {"traversal_worst_abs_diff": trav_worst, "mean_codes": mean, "normal_codes": normal,
+            "ok": bool(ok)}
+
+
+def phase_layers_hardware_differential() -> None:
+    maps, stats = {}, {}
+    for run in ("cuda", "cuda_again", "cpu"):
+        m = OccupancyMap(resolution=RESOLUTION, flags=LAYER_FLAGS)
+        stats[run] = run_layers(TorchRayMapper(m, capacity=CAPACITY, validate=True,
+                                               device=run.split("_")[0]))
+        maps[run] = layer_members(m)
+    oracle_map = OccupancyMap(resolution=RESOLUTION, flags=LAYER_FLAGS)
+    run_layers(RayMapperOccupancy(oracle_map))
+    ref = layer_members(oracle_map)
+    dev = maps["cuda"]
+    bits = dev.keys() == maps["cuda_again"].keys() and all(
+        dev[m].keys() == maps["cuda_again"][m].keys()
+        and all(np.array_equal(v.view(np.uint32), maps["cuda_again"][m][k].view(np.uint32))
+                for k, v in dev[m].items()) for m in dev)
+    row = {"oracle": compare_layers_to_oracle(ref, dev, RESOLUTION,
+                                              int(np.prod(oracle_map.region_voxel_dims))),
+           "card_vs_cpu": compare_layers_to_cpu(dev, maps["cpu"]),
+           "card_runs_bit_identical": bool(bits),
+           "stats_equal_cpu": stats["cuda"] == stats["cpu"],
+           "stats": {k: stats["cuda"][k] for k in ("batches", "missed_updates", "overflow",
+                                                   "compaction_dropped")}}
+    row["ok"] = bool(row["oracle"]["ok"] and row["card_vs_cpu"]["ok"] and bits
+                     and row["stats_equal_cpu"] and dev.keys() == ref.keys())
+    emit({"metric": "layers_hardware_differential", **row})
+    if not row["ok"]:
+        raise AssertionError("side-layer GPU differential failed")
+
+
+def check_layers_path_calls(k1_call, k2_call, phase: str = "layers_kernel_checks") -> dict:
+    """K1 and K2 against their plain versions on the arguments an
+    occupancy path gave them: K1's keys, missed count and, where the call
+    asked for it, traversal on every lane; K2's occupancy bits and touched
+    count, each side on its own clone of the arena.  Bit for bit; prints
+    the ``phase`` line and raises on any difference."""
+    k1_row = check_k1_call(k1_call)
+    (occ, key_s, cfg), _ = k2_call
+    occ_k, touched_k = deposit_cuda.deposit_and_sweep(occ.clone(), key_s, cfg)
+    occ_p, touched_p = deposit_cuda.deposit_and_sweep_reference(occ.clone(), key_s, cfg)
+    torch.cuda.synchronize()
+    changed = int((occ_k.view(torch.int32) != occ.view(torch.int32)).sum())
+    k2_ok = same_bits(occ_k, occ_p) and int(touched_k) == int(touched_p) and changed > 0
+    row = {"expand_keys": k1_row,
+           "deposit_and_sweep": {"keys": key_s.numel(), "touched": int(touched_k),
+                                 "changed": changed, "max_abs_err": finite_err(occ_k, occ_p),
+                                 "bit_identical": bool(k2_ok)}}
+    emit({"phase": phase, "tolerance": 0, **row})
+    if not (k1_row["bit_identical"] and k2_ok):
+        raise AssertionError(f"a kernel differs from its plain version ({phase}): {row}")
+    return {name: r["max_abs_err"] for name, r in row.items()}
+
+
+def device_and_host_ms(mapper, batches, stamps=None):
+    """Host prep alone, then the device path on resident wires (host clock
+    to a synchronize), per batch; returns (host_prep_ms, device_ms, wires,
+    setups).  The arena already holds every region of the batches."""
+    stamps = stamps or [None] * len(batches)
+    t0 = time.perf_counter()
+    setups = [mapper._rayflow_setup_host(b, ts, None, 0) for b, ts in zip(batches, stamps)]
+    host_prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    wires = [torch.from_numpy(w).cuda() for w, _, _ in setups]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w, (_, cfg, n) in zip(wires, setups):
+        mapper._dispatch(w, cfg, n)
+    torch.cuda.synchronize()
+    return host_prep_ms, (time.perf_counter() - t0) / len(batches) * 1e3, wires, setups
+
+
+def phase_layers_bench() -> dict:
+    rng = np.random.default_rng(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    m = OccupancyMap(resolution=RESOLUTION, flags=LAYER_FLAGS)
+    mapper = TorchRayMapper(m, capacity=CAPACITY, device="cuda")
+    batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(N_BATCHES)]
+    stamps = [1000.0 + 0.1 * i + np.arange(RAYS_PER_BATCH) * 1e-5 for i in range(N_BATCHES)]
+    mapper.prime_caps(batches)
+    for i in range(WARMUP):
+        mapper.integrate_rays(batches[i], timestamps=stamps[i])
+
+    # One more batch, its kernel calls captured and each held against its
+    # plain version; then K1 with traversal timed on the same arguments.
+    with first_call_args(expand_cuda, "expand_keys") as k1_args, \
+            first_call_args(deposit_cuda, "deposit_and_sweep") as k2_args:
+        mapper.integrate_rays(batches[WARMUP], timestamps=stamps[WARMUP])
+    torch.cuda.synchronize()
+    errs = check_layers_path_calls(k1_args[0], k2_args[0])
+    (b, cfg0), kw = k1_args[0]
+    if not kw.get("with_trav"):
+        raise AssertionError("the side-layer path did not ask K1 for the traversal")
+    k1_plain, k1_kern = plain_vs_kernel_ms(
+        lambda: expand_cuda.expand_keys_reference(b, cfg0, kw["exclude_origin"], with_trav=True),
+        lambda: expand_cuda.expand_keys(b, cfg0, **kw))
+    # The same arguments without the traversal output, and each kernel alone.
+    keys_kw = dict(kw, with_trav=False)
+    keys_plain, keys_kern = plain_vs_kernel_ms(
+        lambda: expand_cuda.expand_keys_reference(b, cfg0, kw["exclude_origin"]),
+        lambda: expand_cuda.expand_keys(b, cfg0, **keys_kw))
+    alone = {"with_trav": kernel_device_ms(lambda: expand_cuda.expand_keys(b, cfg0, **kw),
+                                           "expand_keys_kernel"),
+             "keys_only": kernel_device_ms(lambda: expand_cuda.expand_keys(b, cfg0, **keys_kw),
+                                           "expand_keys_kernel")}
+    k1_bnd = k1_bound(b, cfg0, with_vox=False, with_trav=True)
+    del k1_args, k2_args
+
+    # The side-layer path, counted: every count is 0 just before it.
+    counters = {"expand_keys": expand_cuda.expand_keys,
+                "deposit_and_sweep": deposit_cuda.deposit_and_sweep}
+    for fn in counters.values():
+        fn.launches = 0
+    batches_before = mapper.stats["batches"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rays, ts in zip(batches, stamps):
+        mapper.integrate_rays(rays, timestamps=ts)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    stats = mapper.stats
+    for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
+        if stats[name]:
+            raise AssertionError(f"side-layer path reported {name}={stats[name]}")
+    if min(launches.values()) <= 0 or launches["expand_keys"] != stats["batches"] - batches_before:
+        raise AssertionError(f"K1 launches {launches} against {stats['batches'] - batches_before} "
+                             f"batches on the side-layer path")
+    peak = torch.cuda.max_memory_allocated()
+
+    host_prep_ms, device_ms, wires, setups = device_and_host_ms(mapper, batches, stamps)
+    # Device timeline per stage (CUDA events: what the device spent between
+    # them, its waits on the host's dispatch included).
+    layers = mapper.arena.layers
+    stage = {"expand": 0.0, "apply": 0.0, "samples": 0.0}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    records_n = 0
+    for w, (_, cfg, _) in zip(wires, setups):
+        bb = unpack_batch(w, cfg)
+        ev[0].record()
+        records, _ = expand_records(bb, cfg)
+        ev[1].record()
+        apply_records(layers["occupancy"], records, cfg, traversal=layers["traversal"])
+        ev[2].record()
+        apply_sample_layers(layers, records, bb, cfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+        records_n = records["key"].numel()
+        for i, name in enumerate(stage):
+            stage[name] += ev[i].elapsed_time(ev[i + 1]) / N_BATCHES
+    syncs = count_host_syncs(lambda: mapper.integrate_rays(batches[0], timestamps=stamps[0]))
+    mapper._drain_stats()
+    profile_main_path(mapper, batches[:8], path="occupancy_layers", stamps=stamps[:8])
+
+    # What comes out: every layer written, values finite.
+    mapper.sync_voxels()
+    lay = layer_members(m)
+    hits = sum(int(c.astype(np.int64).sum()) for c in lay["count"].values())
+    written = {member: sum(int((v != 0).sum()) for v in lay[member].values())
+               for member in ("coord", "traversal", "touch", "packed_normal")}
+    finite = all(np.isfinite(v).all() for v in lay["traversal"].values())
+    if hits == 0 or min(written.values()) == 0 or not finite:
+        raise AssertionError(f"side-layer bench map: hits={hits} written={written} "
+                             f"finite={finite}")
+    rays_per_sec = RAYS_PER_BATCH * N_BATCHES / elapsed
+    emit({"metric": "occupancy_layers_rays_per_sec", "value": rays_per_sec, "unit": "rays/s",
+          "batches": N_BATCHES, "warmup": WARMUP, "rays_per_batch": RAYS_PER_BATCH,
+          "resolution": RESOLUTION, "capacity": CAPACITY,
+          "layers": sorted(mapper.arena.layers), "arena_bytes": sum(
+              t.numel() * t.element_size() for t in mapper.arena.layers.values()),
+          "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
+          "stage_ms_per_batch": stage, "records_per_batch": records_n,
+          "host_syncs_per_batch": syncs,
+          "kernel_ms": {"expand_keys_with_trav": k1_kern, "expand_keys": keys_kern},
+          "plain_ms": {"expand_keys_with_trav": k1_plain, "expand_keys": keys_plain},
+          "kernel_alone_ms": alone,
+          "bound": {"expand_keys_with_trav": k1_bnd,
+                    "expand_keys": k1_bound(b, cfg0, with_vox=False)},
+          "launches": launches,
+          "written_voxels": written, "mean_hits": hits,
+          "stats": {k: stats[k] for k in ("batches", "missed_updates", "overflow",
+                                          "compaction_dropped")},
+          "max_memory_allocated_bytes": peak})
+    return {"launches": launches, "max_abs_err": errs, "ms": k1_kern, "plain_ms": k1_plain,
+            "bound": k1_bnd, "alone_ms": alone["with_trav"]}
+
+
+def phase_outdoor_mean_bench() -> dict:
+    rng = np.random.default_rng(OUTDOOR_SEED)
+    m = OccupancyMap(resolution=OUTDOOR_RESOLUTION, flags=MapFlag.VOXEL_MEAN)
+    mapper = TorchRayMapper(m, capacity=OUTDOOR_CAPACITY, device="cuda")
+    batches = [outdoor_rays(RAYS_PER_BATCH, rng) for _ in range(OUTDOOR_BATCHES)]
+    mapper.prime_caps(batches)
+    for rays in batches[:OUTDOOR_WARMUP]:
+        mapper.integrate_rays(rays)
+    for rays in batches:  # warm the worker's own path too (timed_integration)
+        mapper.integrate_rays_async(rays)
+    mapper.flush()
+    torch.cuda.synchronize()
+
+    # One batch through the worker, its kernel calls captured and each held
+    # against its plain version on the arguments this path gave it.
+    with first_call_args(expand_cuda, "expand_keys") as k1_args, \
+            first_call_args(deposit_cuda, "deposit_and_sweep") as k2_args:
+        mapper.integrate_rays_async(batches[0])
+        mapper.flush()
+    torch.cuda.synchronize()
+    errs = check_layers_path_calls(k1_args[0], k2_args[0], "outdoor_mean_kernel_checks")
+    del k1_args, k2_args
+
+    # The asynchronous path, counted: every count is 0 just before it.
+    counters = {"expand_keys": expand_cuda.expand_keys,
+                "deposit_and_sweep": deposit_cuda.deposit_and_sweep}
+    for fn in counters.values():
+        fn.launches = 0
+    batches_before = mapper.stats["batches"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rays in batches:
+        mapper.integrate_rays_async(rays)
+    mapper.flush()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    stats = mapper.stats
+    for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
+        if stats[name]:
+            raise AssertionError(f"outdoor mean path reported {name}={stats[name]}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the outdoor mean path never launched: {launches}")
+    dispatched = stats["batches"] - batches_before
+
+    host_prep_ms, device_ms, _, setups = device_and_host_ms(mapper, batches)
+    syncs = count_host_syncs(lambda: mapper.integrate_rays(batches[0]))
+    mapper._drain_stats()
+    profile_main_path(mapper, batches[:8], path="occupancy_mean_outdoor")
+    mapper.sync_voxels()
+    lay = layer_members(m)
+    hits = sum(int(c.astype(np.int64).sum()) for c in lay["count"].values())
+    observed = sum(int(np.isfinite(v).sum()) for v in lay["occupancy"].values())
+    if hits == 0 or observed == 0:
+        raise AssertionError(f"outdoor mean map: hits={hits} observed={observed}")
+    rays_per_sec = RAYS_PER_BATCH * OUTDOOR_BATCHES / elapsed
+    emit({"metric": "occupancy_mean_outdoor_rays_per_sec", "value": rays_per_sec,
+          "unit": "rays/s", "batches": OUTDOOR_BATCHES, "dispatched_batches": dispatched,
+          "warmup": OUTDOOR_WARMUP, "rays_per_batch": RAYS_PER_BATCH,
+          "resolution": OUTDOOR_RESOLUTION, "capacity": OUTDOOR_CAPACITY,
+          "source": "synthetic outdoor_rays (no .laz round trip)",
+          "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
+          "host_syncs_per_batch": syncs, "launches": launches,
+          "regions": len(m.chunks), "observed_voxels": observed, "mean_hits": hits,
+          "wire_bytes_per_ray": setups[0][0].nbytes / RAYS_PER_BATCH,
+          "stats": {k: stats[k] for k in ("batches", "missed_updates", "overflow",
+                                          "compaction_dropped")}})
+    return {"launches": launches, "max_abs_err": errs}
 
 
 def _snapshot(x):
@@ -871,16 +1356,7 @@ def phase_ndt_om_bench() -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the NDT-OM path never launched: {launches}")
 
-    t0 = time.perf_counter()
-    setups = [mapper._rayflow_setup_host(b, None, None, 0) for b in batches]
-    host_prep_ms = (time.perf_counter() - t0) / N_BATCHES * 1e3
-    wires = [torch.from_numpy(w).cuda() for w, _, _ in setups]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for w, (_, cfg, n) in zip(wires, setups):
-        mapper._dispatch(w, cfg, n)
-    torch.cuda.synchronize()
-    device_ms = (time.perf_counter() - t0) / N_BATCHES * 1e3
+    host_prep_ms, device_ms, wires, setups = device_and_host_ms(mapper, batches)
 
     # Each kernel beside its plain version on the arguments the path gave
     # it in one more batch.
@@ -936,21 +1412,31 @@ def phase_ndt_om_bench() -> dict:
 
 
 def check_k1_call(k1_call) -> dict:
-    """K1 with voxel planes against its plain version on one recorded call:
-    keys and missed count, and voxel planes on lanes whose key is not the
-    sentinel, bit for bit."""
+    """K1 against its plain version on one recorded call, with the outputs
+    that call asked for: keys and missed count; the traversal on every
+    lane; the voxel planes on lanes whose key is not the sentinel.  Bit for
+    bit."""
     (b, cfg), kw = k1_call
+    excl = kw.get("exclude_origin", False)
+    with_vox, with_trav = kw.get("with_vox", False), kw.get("with_trav", False)
     key_k, aux = expand_cuda.expand_keys(b, cfg, **kw)
-    key_p, missed_p, vox_p = expand_cuda.expand_keys_reference(
-        b, cfg, kw["exclude_origin"], with_vox=True)
+    ref = expand_cuda.expand_keys_reference(b, cfg, excl, with_vox=with_vox, with_trav=with_trav)
+    key_p, missed_p = ref[0], ref[1]
+    torch.cuda.synchronize()
     live = key_p != cfg.sentinel
-    vk, vp = aux["vox"][live], vox_p[live]
-    err = max(int((key_k.long() - key_p.long()).abs().max()),
-              int((vk.long() - vp.long()).abs().max()) if vk.numel() else 0)
-    ok = (torch.equal(key_k, key_p) and torch.equal(vk, vp) and vk.numel() > 0
-          and int(aux["missed_n"]) == int(missed_p))
-    return {"lanes_compared": int(live.sum()), "missed": int(missed_p), "max_abs_err": err,
-            "bit_identical": bool(ok)}
+    err = float((key_k.long() - key_p.long()).abs().max())
+    ok = torch.equal(key_k, key_p) and int(aux["missed_n"]) == int(missed_p)
+    row = {"lanes": key_k.numel(), "lanes_compared": int(live.sum()), "missed": int(missed_p)}
+    if with_vox:
+        vk, vp = aux["vox"][live], ref[2][live]
+        err = max(err, float((vk.long() - vp.long()).abs().max()) if vk.numel() else 0.0)
+        ok = ok and torch.equal(vk, vp) and vk.numel() > 0
+    if with_trav:
+        tk, tp = aux["trav"], ref[-1]
+        err = max(err, finite_err(tk, tp))
+        ok = ok and same_bits(tk, tp) and bool((tp > 0).any())
+        row["traversal_sum"] = float(tp.double().sum())
+    return {**row, "max_abs_err": err, "bit_identical": bool(ok)}
 
 
 def check_ndt_path_calls(k1_call, k4_call, k3_call) -> dict:
@@ -1301,16 +1787,7 @@ def phase_tsdf_bench() -> dict:
         raise AssertionError(f"a kernel of the TSDF path never launched: {launches}")
     peak = torch.cuda.max_memory_allocated()
 
-    t0 = time.perf_counter()
-    setups = [mapper._rayflow_setup_host(b, None, None, 0) for b in batches]
-    host_prep_ms = (time.perf_counter() - t0) / TSDF_BATCHES * 1e3
-    wires = [torch.from_numpy(w).cuda() for w, _, _ in setups]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for w, (_, cfg, n) in zip(wires, setups):
-        mapper._dispatch(w, cfg, n)
-    torch.cuda.synchronize()
-    device_ms = (time.perf_counter() - t0) / TSDF_BATCHES * 1e3
+    host_prep_ms, device_ms, _, _ = device_and_host_ms(mapper, batches)
     mapper._drain_stats()
     profile_main_path(mapper, batches[:8], path="tsdf")
 
@@ -1351,6 +1828,10 @@ def main() -> int:
     k2 = phase_k2()
     phase_hardware_differential()
     bench = phase_bench(k1)
+    k1_trav = phase_k1_trav(k1)
+    phase_layers_hardware_differential()
+    layers = phase_layers_bench()
+    outdoor = phase_outdoor_mean_bench()
     k1_vox = phase_k1_vox(k1)
     k3 = phase_k3()
     k4 = phase_k4()
@@ -1376,17 +1857,29 @@ def main() -> int:
                 **path["bound"][name], "library_ms": lib, **extra}
 
     # K1's main path here is the occupancy path's (keys only); it also runs
-    # on the NDT-OM and TSDF paths with voxel planes.
+    # on the side-layer path with its traversal output, on the outdoor mean
+    # path, and on the NDT-OM and TSDF paths with voxel planes.
     emit({"kernels": [
         row("expand_keys", "expand.cu", "expand_pallas.py:185", bench,
-            max(k1["max_abs_err"], k1_vox["max_abs_err"], ndt["max_abs_err"]["expand_keys"],
-                tsdf["max_abs_err"]["expand_keys"]),
+            max(k1["max_abs_err"], k1_trav["max_abs_err"], k1_vox["max_abs_err"],
+                layers["max_abs_err"]["expand_keys"], outdoor["max_abs_err"]["expand_keys"],
+                ndt["max_abs_err"]["expand_keys"], tsdf["max_abs_err"]["expand_keys"]),
+            layers_launches=layers["launches"]["expand_keys"],
+            outdoor_mean_launches=outdoor["launches"]["expand_keys"],
             ndt_om_launches=ndt["launches"]["expand_keys"],
             tsdf_launches=tsdf["launches"]["expand_keys"],
+            with_trav_ms=layers["ms"], with_trav_plain_ms=layers["plain_ms"],
+            with_trav_bound_ms=layers["bound"]["bound_ms"],
+            with_trav_bound_by=layers["bound"]["bound_by"],
+            with_trav_kernel_alone_ms=layers["alone_ms"],
             with_vox_ms=tsdf["ms"]["expand_keys"],
             with_vox_plain_ms=tsdf["plain_ms"]["expand_keys"],
             with_vox_bound_ms=tsdf["bound"]["expand_keys"]["bound_ms"]),
-        row("deposit_and_sweep", "deposit.cu", "deposit_pallas.py:439", bench, k2["max_abs_err"]),
+        row("deposit_and_sweep", "deposit.cu", "deposit_pallas.py:439", bench,
+            max(k2["max_abs_err"], layers["max_abs_err"]["deposit_and_sweep"],
+                outdoor["max_abs_err"]["deposit_and_sweep"]),
+            layers_launches=layers["launches"]["deposit_and_sweep"],
+            outdoor_mean_launches=outdoor["launches"]["deposit_and_sweep"]),
         row("deposit_and_sweep_ndt", "deposit.cu", "deposit_pallas.py:449", ndt,
             max(k3["max_abs_err"], ndt["max_abs_err"]["deposit_and_sweep_ndt"])),
         row("gather_plane", "gather.cu", "deposit_pallas.py:479", ndt,

@@ -17,12 +17,17 @@
 // records are counted: one __syncthreads_count and one atomicAdd a block.
 // With a voxel-plane output (``vox`` not null; the NDT path's with_vox),
 // the record's absolute voxel is stored too, one i32 plane per axis
-// [3][B][3S]: three more coalesced stores a record.
+// [3][B][3S]: three more coalesced stores a record.  With a traversal output
+// (``trav`` not null; the traversal layer's with_trav, replacing the Pallas
+// kernel's trav output), the record stores t - enter, where enter is the
+// latest earlier event over the axes: prev[b] = e0[b] + (counts[b] - 1) *
+// dd[b] where counts[b] > 0, else 0, maxed own axis first, then the others
+// ascending; an invalid record stores 0.  One more coalesced 4-byte store.
 //
 // What bounds it on the H100: integer and ALU work, ~60 dependent ops and a
 // K-way compare per record, against 4 bytes written per record and a few
-// dozen bytes read per ray (16 bytes written with the voxel planes);
-// nothing is gathered or sorted.  The design keeps it there: the per-ray
+// dozen bytes read per ray (8 bytes with the traversal output, 16 with the
+// voxel planes); nothing is gathered or sorted.  The design keeps it there: the per-ray
 // scalars are staged once per block in shared memory
 // (every thread of the block belongs to the same ray), records map to
 // consecutive threads, so key stores coalesce, and blockIdx.x runs over the
@@ -31,7 +36,10 @@
 // Exactness: every f32 product and sum is rounded separately (__fmul_rn /
 // __fadd_rn, and the build passes -fmad=false), as the reference rounds
 // them; __float2int_rd saturates and maps NaN to 0, as XLA's f32 -> i32
-// cast does.
+// cast does.  The max of the enter times is a compare and select that keeps
+// the first operand on a tie, as XLA's max and the plain version
+// (ops.ddawalk.max_keep_first) do: fmaxf may return either of +0.0 and
+// -0.0, and enter is +-0 where a ray starts on a wall.
 
 #include <cuda_runtime.h>
 
@@ -49,13 +57,18 @@ __device__ __forceinline__ float event_time(float e0, float dd, int m) {
   return __fadd_rn(e0, __fmul_rn(__int2float_rn(m), dd));
 }
 
+// max(a, b), keeping a when the two compare equal.
+__device__ __forceinline__ float max_keep_first(float a, float b) {
+  return b > a ? b : a;
+}
+
 // fray f32[B,9]: e0[3] dd[3] inv[3].  iray i32[B,10+K]: start_abs[3]
 // step_dir[3] n_ax[3] tcand[K] exclude.  gmeta i32[3]: bbox origin region.
 __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
     const float* __restrict__ fray, const int* __restrict__ iray,
     const int* __restrict__ gmeta, int* __restrict__ key,
-    int* __restrict__ vox, int* __restrict__ missed, int B, int S, int K,
-    int shift, int v, int sentinel, int exclude_origin) {
+    float* __restrict__ trav, int* __restrict__ vox, int* __restrict__ missed,
+    int B, int S, int K, int shift, int v, int sentinel, int exclude_origin) {
   __shared__ float sf[9];
   __shared__ int si[10 + kMaxK];
   __shared__ int sg[3];
@@ -129,6 +142,19 @@ __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
     }
     key[(size_t)ray * W + j] = valid ? flat : sentinel;
     count_miss = valid && is_missed;
+
+    if (trav != nullptr) {
+      float prev[3];
+      for (int b = 0; b < 3; ++b) {
+        prev[b] = counts[b] > 0 ? event_time(sf[b], sf[3 + b], counts[b] - 1)
+                                : 0.0f;
+      }
+      const int o1 = a == 0 ? 1 : 0;  // the other axes, ascending
+      const int o2 = a == 2 ? 1 : 2;
+      const float enter =
+          max_keep_first(max_keep_first(prev[a], prev[o1]), prev[o2]);
+      trav[(size_t)ray * W + j] = valid ? __fsub_rn(t, enter) : 0.0f;
+    }
   }
   const int n = __syncthreads_count(count_miss);
   if (threadIdx.x == 0 && n != 0) atomicAdd(missed, n);
@@ -136,18 +162,19 @@ __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
 
 }  // namespace
 
-// vox may be null (no voxel planes).
+// trav may be null (no traversal output), and so may vox (no voxel planes).
 extern "C" int ohm_expand_keys(const void* fray, const void* iray,
-                               const void* gmeta, void* key, void* vox,
-                               void* missed, int B, int S, int K, int shift,
-                               int v, int sentinel, int exclude_origin,
-                               void* stream) {
+                               const void* gmeta, void* key, void* trav,
+                               void* vox, void* missed, int B, int S, int K,
+                               int shift, int v, int sentinel,
+                               int exclude_origin, void* stream) {
   if (K < 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
   if (B > 0 && S > 0) {
     const dim3 grid(B, (3 * S + kBlock - 1) / kBlock);
     expand_keys_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
         (const float*)fray, (const int*)iray, (const int*)gmeta, (int*)key,
-        (int*)vox, (int*)missed, B, S, K, shift, v, sentinel, exclude_origin);
+        (float*)trav, (int*)vox, (int*)missed, B, S, K, shift, v, sentinel,
+        exclude_origin);
   }
   return (int)cudaGetLastError();
 }

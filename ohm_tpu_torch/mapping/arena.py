@@ -2,10 +2,11 @@
 tensor per layer, with LRU paging to the host map.
 
 Counterpart of ``VoxelArena`` in ``ohm_tpu/mapping/arena.py`` for the layers
-the port has: occupancy, and for NDT mean (``mean_coord``, ``mean_count``),
-covariance ``cov`` [N,6], and for NDT-TM ``intensity`` [N,2],
-``hit_count`` and ``miss_count``; for TSDF ``tsdf_weight`` and
-``tsdf_distance``.  Each layer holds ``capacity * V + 1``
+the port has: occupancy, and the occupancy mapper's side layers mean
+(``mean_coord``, ``mean_count``), ``traversal``, ``touch_time`` and
+``incident``; for NDT mean, covariance ``cov`` [N,6], and for NDT-TM
+``intensity`` [N,2], ``hit_count`` and ``miss_count``; for TSDF
+``tsdf_weight`` and ``tsdf_distance``.  Each layer holds ``capacity * V + 1``
 voxels on its device: region slot s owns ``[s*V, (s+1)*V)``, and the last
 element is the sentinel that dropped records address (no kernel writes it).
 The reference's 512-multiple padding and scatter tail served Pallas and the
@@ -46,8 +47,11 @@ class CacheFull(RuntimeError):
 #: occupancy's, which the encoding sets.
 LAYER_SPECS = {
     "occupancy": (torch.float32, np.float32, None),
+    "traversal": (torch.float32, np.float32, None),
     "mean_coord": (torch.int32, np.uint32, None),
     "mean_count": (torch.int32, np.uint32, None),
+    "touch_time": (torch.int32, np.uint32, None),  # ms since the first ray
+    "incident": (torch.int32, np.uint32, None),  # packed normal
     "cov": (torch.float32, np.float32, 6),  # packed lower-triangular sqrt cov
     "intensity": (torch.float32, np.float32, 2),  # mean, cov
     "hit_count": (torch.int32, np.uint32, None),
@@ -60,8 +64,11 @@ _COV_MEMBERS = ("P00", "P01", "P11", "P02", "P12", "P22")
 #: Scalar layers stored in one member of a host layer.
 _HOST_MEMBERS = {
     "occupancy": (layoutmod.OCCUPANCY_LAYER, "occupancy"),
+    "traversal": (layoutmod.TRAVERSAL_LAYER, "traversal"),
     "mean_coord": (layoutmod.MEAN_LAYER, "coord"),
     "mean_count": (layoutmod.MEAN_LAYER, "count"),
+    "touch_time": (layoutmod.TOUCH_TIME_LAYER, "touch"),
+    "incident": (layoutmod.INCIDENT_NORMAL_LAYER, "packed_normal"),
     "hit_count": (layoutmod.HIT_MISS_COUNT_LAYER, "hit_count"),
     "miss_count": (layoutmod.HIT_MISS_COUNT_LAYER, "miss_count"),
     "tsdf_weight": (layoutmod.TSDF_LAYER, "weight"),

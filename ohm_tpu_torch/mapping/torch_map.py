@@ -1,23 +1,28 @@
 """TorchRayMapper: the occupancy ray integrator on PyTorch (CUDA or CPU).
 
 Counterpart of ``TpuRayMapper`` (``ohm_tpu/mapping/tpu_map.py``) on its
-rayflow wire, for the occupancy layer.  Per batch:
+rayflow wire, for the occupancy layer and any of the side layers voxel
+mean, traversal, touch time and incident normal.  Per batch:
 
   host prep      mapping.batch.prepare_rayflow / rayflow_wire (native C++)
   allocation     mapping.arena.VoxelArena.ensure_regions (LRU, host spill)
   upload         the wire, one uint8 tensor
   decode         ops.wire.unpack_batch
   expand         ops.integrate.expand_records (kernel K1)
-  sort + apply   ops.integrate.apply_records (torch.sort, kernel K2)
+  sort + apply   ops.integrate.apply_records (torch.sort, kernel K2, the
+                 traversal sums)
+  samples        ops.integrate.apply_sample_layers (mean, touch, incident)
   sync           sync_voxels -> host OccupancyMap chunks
 
 On a CUDA device the two kernels run; with ``device="cpu"`` their plain
 PyTorch versions do, with bit-identical results.  The host map is the
-port's own (``ohm_tpu_torch.core.map.OccupancyMap``).  Not ported yet (each
-raises NotImplementedError): map layers other than occupancy,
-STOP_ON_FIRST_OCCUPIED, the asynchronous worker, and batches outside the
-rayflow envelope (the reference's segmented wire).  The TPU levers (fused,
-delta, chained and monolith dispatch, scatter windows) are not ported.
+port's own (``ohm_tpu_torch.core.map.OccupancyMap``).
+``integrate_rays_async`` queues batches for one worker thread, in order;
+``flush``, ``sync_voxels`` and ``stats`` wait for it and raise what it
+raised.  Not ported yet (each raises NotImplementedError):
+STOP_ON_FIRST_OCCUPIED and batches outside the rayflow envelope (the
+reference's segmented wire).  The TPU levers (fused, delta, chained and
+monolith dispatch, coalesced transfers, scatter windows) are not ported.
 
 Subclasses (mapping.ndt_map.TorchNdtMap, mapping.tsdf_map.TorchTsdfMap)
 override the hooks: the layer
@@ -29,18 +34,26 @@ summed by ``_drain_stats``.
 
 from __future__ import annotations
 
+import contextlib
+import queue
+import threading
+
 import numpy as np
 import torch
 
-from ohm_tpu_torch.core.layout import OCCUPANCY_LAYER
+from ohm_tpu_torch.core.layout import (INCIDENT_NORMAL_LAYER, MEAN_LAYER, OCCUPANCY_LAYER,
+                                       TOUCH_TIME_LAYER, TRAVERSAL_LAYER)
 from ohm_tpu_torch.core.rayflags import RayFlag, normalize_reverse_walk
 from ohm_tpu_torch.device import resolve_device
 from ohm_tpu_torch.mapping.arena import CacheFull, VoxelArena
 from ohm_tpu_torch.mapping.batch import (
     frac_dict_of, prepare_rayflow, rayflow_wire, snake_perm)
 from ohm_tpu_torch.ops.config import IntegrateConfig
-from ohm_tpu_torch.ops.integrate import apply_records, expand_records
+from ohm_tpu_torch.ops.integrate import apply_records, apply_sample_layers, expand_records
 from ohm_tpu_torch.ops.wire import unpack_batch
+
+#: The side layers the occupancy mapper integrates.
+SIDE_LAYERS = (MEAN_LAYER, TRAVERSAL_LAYER, TOUCH_TIME_LAYER, INCIDENT_NORMAL_LAYER)
 
 #: Candidate entries pack (slot + 1) << 18 into an int32, so slot + 1 must
 #: stay below 2^13 or the sign bit sets and a valid match is rejected.
@@ -70,6 +83,10 @@ class TorchRayMapper:
         self.validate = validate
 
         self._check_layers(map_obj)
+        # The side layers the map holds, as the reference's config carries
+        # them; the NDT and TSDF mappers integrate none of them.
+        (self.with_mean, self.with_traversal, self.with_touch,
+         self.with_incident) = (map_obj.layer_index(name) >= 0 for name in SIDE_LAYERS)
         if capacity > MAX_CAPACITY:
             raise ValueError(
                 f"capacity {capacity} > {MAX_CAPACITY} needs the segmented "
@@ -87,18 +104,31 @@ class TorchRayMapper:
                        "overflow": 0, "dropped_updates": 0, "compaction_dropped": 0}
         self._stats.update({k: 0 for k in self._STAT_NAMES})
         self._pending_stats = []
+        self._queue = None
+        self._worker = None
+        self._worker_error = None
 
     def _check_layers(self, map_obj) -> None:
         """Raise for map layers this mapper does not integrate."""
         others = [layer.name for layer in map_obj.layout.layers
-                  if layer.name != OCCUPANCY_LAYER]
+                  if layer.name not in (OCCUPANCY_LAYER, *SIDE_LAYERS)]
         if others:
             raise NotImplementedError(
-                f"map layers other than occupancy are not ported yet: {others}")
+                f"map layers other than occupancy, mean, traversal, touch time "
+                f"and incident normal are not ported yet: {others}")
 
     def _arena_layers(self) -> tuple[list[str], str]:
         """The arena's layers and its occupancy encoding."""
-        return ["occupancy"], "zero"
+        names = ["occupancy"]
+        if self.with_mean:
+            names += ["mean_coord", "mean_count"]
+        if self.with_traversal:
+            names.append("traversal")
+        if self.with_touch:
+            names.append("touch_time")
+        if self.with_incident:
+            names.append("incident")
+        return names, "zero"
 
     def prime_caps(self, batches) -> None:
         """Host-only pass seeding the monotone shape caches (group cap, step
@@ -166,7 +196,7 @@ class TorchRayMapper:
         G, snake = self._rayflow_grouping(rf.rpad)
         perm = snake_perm(rf.crossings, G) if snake else None
         fdict = frac_dict_of(rf)
-        wire = rayflow_wire(rf, self.arena.table, with_touch=False,
+        wire = rayflow_wire(rf, self.arena.table, with_touch=self.with_touch,
                             with_intensity=self._rayflow_intensity, cdict=cdict,
                             fdict=fdict, perm=perm)
         cap = self._rayflow_group_cap(rf.crossings, G, snake, perm=perm)
@@ -188,6 +218,10 @@ class TorchRayMapper:
             capacity=self.arena.capacity,
             max_steps=max_steps,
             ray_flags=int(ray_flags),
+            with_mean=self.with_mean,
+            with_traversal=self.with_traversal,
+            with_touch_time=self.with_touch,
+            with_incident=self.with_incident,
             hit_value=float(np.float32(m.hit_value)),
             miss_value=float(np.float32(m.miss_value)),
             occupancy_threshold=float(np.float32(m.occupancy_threshold_value)),
@@ -216,9 +250,52 @@ class TorchRayMapper:
             raise NotImplementedError("STOP_ON_FIRST_OCCUPIED is not ported yet")
         return self._integrate_with_retry(rays, intensities, timestamps, ray_update_flags)
 
-    def integrate_rays_async(self, *args, **kwargs):
-        raise NotImplementedError("the asynchronous worker is not ported yet; "
-                                  "use integrate_rays")
+    def integrate_rays_async(self, rays, intensities=None, timestamps=None,
+                             ray_update_flags: int = 0) -> int:
+        """Queue a ray batch for the worker thread; returns its ray count N.
+
+        One worker integrates the queued batches in order, each as
+        integrate_rays would, so host prep of a batch overlaps the device
+        work of the one before.  ``flush`` (and ``sync_voxels``, ``stats``)
+        waits for the queue and raises the first error the worker met."""
+        ray_update_flags = normalize_reverse_walk(ray_update_flags)
+        if ray_update_flags & RayFlag.STOP_ON_FIRST_OCCUPIED:
+            raise NotImplementedError("STOP_ON_FIRST_OCCUPIED is not ported yet")
+        if self._worker is None:
+            self._queue = queue.Queue(maxsize=4)
+            self._worker = threading.Thread(target=self._work, daemon=True)
+            self._worker.start()
+        self._queue.put((rays, intensities, timestamps, ray_update_flags))
+        return np.asarray(rays).reshape(-1, 3).shape[0] // 2
+
+    def _work(self) -> None:
+        """The worker: integrate queued batches in order, for the mapper's life.
+
+        The current device is per thread, so the worker enters the mapper's
+        own.  It launches on that device's current stream, the same one the
+        caller's thread uses, so a region the worker evicts (a .cpu()
+        download) is read after the previous batch's kernels wrote it."""
+        on_card = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                   else contextlib.nullcontext())
+        with on_card:
+            while True:
+                item = self._queue.get()
+                try:
+                    self._integrate_with_retry(*item)
+                except Exception as e:  # raised again by flush
+                    if self._worker_error is None:
+                        self._worker_error = e
+                finally:
+                    self._queue.task_done()
+
+    def flush(self) -> None:
+        """Wait until the worker has integrated every queued batch; raise the
+        first error it met since the last flush."""
+        if self._worker is not None:
+            self._queue.join()
+            if self._worker_error is not None:
+                err, self._worker_error = self._worker_error, None
+                raise err
 
     def _stream_estimate(self, r: np.ndarray) -> int:
         """Record-stream estimate of a batch: total wall crossings + 3/ray."""
@@ -299,9 +376,14 @@ class TorchRayMapper:
         return n_rays
 
     def _integrate_device(self, b: dict, cfg: IntegrateConfig) -> dict:
-        """Expand + sort + deposit of one decoded batch; returns its stats."""
+        """Expand + sort + deposit of one decoded batch, then the sample
+        layers; returns its stats."""
         records, stats = expand_records(b, cfg)
-        stats["touched"] = apply_records(self.arena.occupancy, records, cfg)
+        layers = self.arena.layers
+        stats["touched"] = apply_records(layers["occupancy"], records, cfg,
+                                         traversal=layers.get("traversal"))
+        if cfg.with_mean or cfg.with_touch_time or cfg.with_incident:
+            apply_sample_layers(layers, records, b, cfg)
         return stats
 
     def _drain_stats(self) -> list[dict]:
@@ -317,10 +399,12 @@ class TorchRayMapper:
 
     def sync_voxels(self):
         """Flush device voxel state into the host OccupancyMap (GpuMap::syncVoxels)."""
+        self.flush()
         self._drain_stats()
         self.arena.sync_to_host(self.map, stamp=self.map.stamp)
 
     @property
     def stats(self) -> dict:
+        self.flush()
         self._drain_stats()
         return dict(self._stats)

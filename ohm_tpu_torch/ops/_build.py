@@ -38,9 +38,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu (extern "C"); every entry returns a cudaError_t.
 _SIGNATURES = {
-    # fray, iray, gmeta, key, vox (or null), missed, B, S, K, shift, v,
-    # sentinel, exclude_origin, stream
-    "ohm_expand_keys": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # fray, iray, gmeta, key, trav (or null), vox (or null), missed, B, S,
+    # K, shift, v, sentinel, exclude_origin, stream
+    "ohm_expand_keys": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # occupancy, keys, n_keys, hit, miss, n_vox, flags, hit_value,
     # miss_value, threshold, min_value, max_value, saturation_min,
     # saturation_max, touched, stream

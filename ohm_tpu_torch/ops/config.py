@@ -3,8 +3,7 @@
 ``IntegrateConfig`` is the counterpart of ``IntegrateConfig`` in
 ``ohm_tpu/ops/integrate.py``, holding only the fields the port's path reads.
 The TPU switches (``scatter_cap``, ``row_cap``, ``pallas_*``, the scatter
-tail) and the layers the port does not have yet (traversal, touch time,
-incident) are left out.  ``NdtConfig`` and ``TsdfConfig`` are the
+tail) are left out.  ``NdtConfig`` and ``TsdfConfig`` are the
 counterparts of ``NdtConfig`` in ``ohm_tpu/ops/integrate_ndt.py`` and
 ``TsdfConfig`` in ``ohm_tpu/ops/integrate_tsdf.py``.
 
@@ -25,6 +24,11 @@ class IntegrateConfig:
     capacity: int  # arena capacity in regions
     max_steps: int  # per-axis event cap S of the walk (record axis is 3S)
     ray_flags: int = 0
+    # Layer presence (the occupancy mapper's side layers):
+    with_mean: bool = False
+    with_traversal: bool = False
+    with_touch_time: bool = False
+    with_incident: bool = False
     # Probability model (f32 values held as Python floats):
     hit_value: float = 0.0
     miss_value: float = 0.0
@@ -51,7 +55,8 @@ class IntegrateConfig:
     #: a 2048-entry dict (2); start_frac as a 256-entry dict + u8 index.
     rayw_cdict: int = 0
     rayw_fdict: bool = False
-    #: The wire carries a per-ray f32 intensity block (the NDT mappers).
+    #: The wire carries a per-ray f32 intensity block (the NDT mappers); it
+    #: carries a per-ray u32 touch-time block when ``with_touch_time``.
     rayw_intensity: bool = False
 
     def __post_init__(self):

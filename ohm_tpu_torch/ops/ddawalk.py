@@ -12,8 +12,8 @@ ties won by the higher axis (ohm/LineWalkCompute.h walkSelectNextAxis).
 
 Every float op keeps the reference's order, and each product and sum is a
 separate PyTorch op, so nothing fuses into an FMA: the keys are bit-identical
-to the JAX package's.  The traversal outputs (enter/exit ranges) are left out
-with the traversal layer.
+to the JAX package's.  Each record also carries its enter and exit times
+(the traversal layer's ``exits - enters``).
 """
 
 from __future__ import annotations
@@ -63,6 +63,13 @@ def init_walk(start_frac, direction, length, start_abs, end_abs, resolution):
     return sign, initial_exit, step_delta, crossings
 
 
+def max_keep_first(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max(a, b) that returns ``a`` when the two compare equal, as XLA's max
+    does: +0.0 and -0.0 keep their order.  torch.maximum may pick either
+    zero, and not alike on every device (K1 selects the same way)."""
+    return torch.where(b > a, b, a)
+
+
 def safe_inverse(step_delta: torch.Tensor) -> torch.Tensor:
     """1 / step_delta where positive, else 0."""
     pos = step_delta > 0
@@ -76,8 +83,10 @@ def walk_rays_unordered(start_abs, end_abs, start_frac, direction, length,
     (a = j // S, k = j % S).
 
     Returns a dict: voxels i32[B,3S,3] (absolute voxel coords), valid
-    bool[B,3S], first bool[B,3S] (the ray's origin-voxel record),
-    end_enter f32[B], overflow bool[B] (a per-axis count exceeded S)."""
+    bool[B,3S], first bool[B,3S] (the ray's origin-voxel record), enters
+    f32[B,3S] (the latest earlier event over the axes, 0 on invalid
+    records) and exits f32[B,3S] (the record's own event time), end_enter
+    f32[B], overflow bool[B] (a per-axis count exceeded S)."""
     B = start_abs.shape[0]
     S = int(max_steps)
     sign, initial_exit, step_delta, crossings = init_walk(
@@ -111,21 +120,33 @@ def walk_rays_unordered(start_abs, end_abs, start_frac, direction, length,
             c = c + ((c < n_b) & (masked_bits(t_c) == mt_a)).to(torch.int32)
         return c
 
-    voxels = []
+    def prev_time(b_axis, count):
+        """Time of axis b's last event before ``count`` of them (0 if none):
+        e0 + (count - 1) * dd, product and sum rounded separately."""
+        t = initial_exit[:, b_axis, None] + (count - 1).to(torch.float32) * step_delta[:, b_axis, None]
+        return torch.where(count > 0, t, torch.zeros_like(t))
+
+    voxels, enters = [], []
     own = k.expand(B, S)
     for a in range(3):
         counts = [own if b == a else rank_against(b, a) for b in range(3)]
         voxels.append(start_abs[:, None, :]
                       + step_dir[:, None, :] * torch.stack(counts, dim=-1))
+        # Own axis first, then the others ascending (the reference's order).
+        prevs = [prev_time(b, counts[b]) for b in [a] + [b for b in range(3) if b != a]]
+        enters.append(max_keep_first(max_keep_first(prevs[0], prevs[1]), prevs[2]))
     voxels = torch.cat(voxels, dim=1)  # [B,3S,3]
     valid_flat = valid.reshape(B, 3 * S)
     first = valid_flat & torch.all(voxels == start_abs[:, None, :], dim=-1)
     exits = times.reshape(B, 3 * S)
+    enters = torch.cat(enters, dim=1)
     end_enter = torch.where(valid_flat, exits, torch.zeros_like(exits)).amax(dim=1)
     return {
         "voxels": voxels,
         "valid": valid_flat,
         "first": first,
+        "enters": torch.where(valid_flat, enters, torch.zeros_like(enters)),
+        "exits": exits,
         "end_enter": end_enter,
         "overflow": torch.any(crossings > S, dim=1),
     }

@@ -45,9 +45,11 @@ def _prelude(b: dict, cfg: IntegrateConfig):
 
 
 def expand_keys_reference(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
-                          with_vox: bool = False):
-    """Plain PyTorch K1: (flat i32[B,3S], missed count i32 0-dim), and with
-    ``with_vox`` a third item, the voxel planes i32[B,3S,3] (walk["voxels"]).
+                          with_vox: bool = False, with_trav: bool = False):
+    """Plain PyTorch K1: (flat i32[B,3S], missed count i32 0-dim), then with
+    ``with_vox`` the voxel planes i32[B,3S,3] (walk["voxels"]), then with
+    ``with_trav`` the traversal f32[B,3S] (exits - enters, 0 where the
+    record is not valid).
 
     flat is the record's arena id, or the sentinel where the record is
     invalid, unresolved (missed) or the excluded origin voxel."""
@@ -63,9 +65,13 @@ def expand_keys_reference(b: dict, cfg: IntegrateConfig, exclude_origin: bool = 
     flat, missed = resolve_slots(walk["voxels"], cfg, b["tcand"], b["gmeta"])
     flat = torch.where(rec_valid, flat, torch.full_like(flat, cfg.sentinel))
     missed_n = (rec_valid & missed).sum().to(torch.int32)
+    out = (flat, missed_n)
     if with_vox:
-        return flat, missed_n, walk["voxels"]
-    return flat, missed_n
+        out += (walk["voxels"],)
+    if with_trav:
+        trav = walk["exits"] - walk["enters"]
+        out += (torch.where(rec_valid, trav, torch.zeros_like(trav)),)
+    return out
 
 
 def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
@@ -77,17 +83,18 @@ def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
     ``with_vox`` adds aux["vox"] i32[B,3S,3], each record's absolute voxel,
     as in the reference: it equals the plain version's walk["voxels"] on
     every lane whose key is not the sentinel, and is unspecified elsewhere.
-    The traversal output serves the traversal layer, which the port does
-    not have yet."""
-    if with_trav:
-        raise NotImplementedError("expand_keys: with_trav output (traversal layer)")
+    ``with_trav`` adds aux["trav"] f32[B,3S], each record's traversal
+    length, bit for bit the plain version's on every lane."""
     e0, dd, inv, step_dir, n_ax, aux = _prelude(b, cfg)
     start_abs = b["start_abs"]
     if start_abs.device.type == "cpu":
-        out = expand_keys_reference(b, cfg, exclude_origin, with_vox=with_vox)
-        aux["missed_n"] = out[1]
+        out = list(expand_keys_reference(b, cfg, exclude_origin, with_vox=with_vox,
+                                         with_trav=with_trav))
+        if with_trav:
+            aux["trav"] = out.pop()
         if with_vox:
-            aux["vox"] = out[2]
+            aux["vox"] = out.pop()
+        aux["missed_n"] = out[1]
         return out[0], aux
 
     B, S, K = start_abs.shape[0], cfg.max_steps, b["tcand"].shape[1]
@@ -99,17 +106,21 @@ def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
                      dim=1).to(torch.int32).contiguous()
     gmeta = b["gmeta"][0:3].to(torch.int32).contiguous()
     key = torch.empty((B, 3 * S), dtype=torch.int32, device=start_abs.device)
+    trav = (torch.empty((B, 3 * S), dtype=torch.float32, device=start_abs.device)
+            if with_trav else None)
     vox = (torch.empty((3, B, 3 * S), dtype=torch.int32, device=start_abs.device)
            if with_vox else None)
     missed = torch.zeros(1, dtype=torch.int32, device=start_abs.device)
     rc = _build.load().ohm_expand_keys(
         fray.data_ptr(), iray.data_ptr(), gmeta.data_ptr(), key.data_ptr(),
-        vox.data_ptr() if with_vox else None, missed.data_ptr(), B, S, K,
-        cfg.region_shift, cfg.voxels_per_region, cfg.sentinel,
-        int(exclude_origin), _build.stream_of(key))
+        trav.data_ptr() if with_trav else None, vox.data_ptr() if with_vox else None,
+        missed.data_ptr(), B, S, K, cfg.region_shift, cfg.voxels_per_region,
+        cfg.sentinel, int(exclude_origin), _build.stream_of(key))
     _build.check(rc, "expand_keys")
     expand_keys.launches += 1
     aux["missed_n"] = missed[0]
+    if with_trav:
+        aux["trav"] = trav
     if with_vox:
         aux["vox"] = vox.permute(1, 2, 0)  # [B, 3S, 3] view of the planes
     return key, aux

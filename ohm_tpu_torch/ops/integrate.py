@@ -1,14 +1,24 @@
 """Occupancy integration of one rayflow batch: expand, sort, deposit.
 
 Counterpart of the split-phase path of ``ohm_tpu/ops/integrate.py``
-(``expand_records`` + ``apply_records``) on the rayflow wire with the rank
-walk, for the occupancy layer alone:
+(``expand_records`` + ``apply_records`` + ``_apply_sample_layers``) on the
+rayflow wire with the rank walk:
 
-  expand  K1 (ops.expand_cuda) emits one key per walk record; the end
-          records resolve here; group compaction cuts the sentinel padding
+  expand  K1 (ops.expand_cuda) emits one key per walk record, and with the
+          traversal layer each record's traversal length; the end records
+          resolve here; group compaction cuts the sentinel padding
   sort    one torch.sort of the (flat << 1 | hit) key stream
   apply   K2 (ops.deposit_cuda) deposits exact hit/miss counts per voxel and
-          sweeps the occupancy update in place against batch-start values
+          sweeps the occupancy update in place against batch-start values;
+          the traversal sums add in at each voxel's last record
+  samples the mean, touch-time and incident-normal layers from the batch's
+          end-voxel hits (apply_sample_layers)
+
+Every sort that carries a payload is stable (torch.sort is not on CUDA
+otherwise), and every float sum runs in a fixed order (ops.segments), so
+two runs give the same bits.  The updates are in place; a scatter writes
+each touched voxel once, at indices compacted from the sorted stream (one
+``nonzero`` each, which waits for the device), and never the sentinel.
 """
 
 from __future__ import annotations
@@ -16,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ohm_tpu_torch.core.rayflags import RayFlag
-from ohm_tpu_torch.ops import deposit_cuda, expand_cuda
+from ohm_tpu_torch.ops import deposit_cuda, expand_cuda, segments, subvoxel
 from ohm_tpu_torch.ops.config import IntegrateConfig
 
 
@@ -59,16 +69,22 @@ def group_rows(flat, B: int, S: int, G: int):
 def expand_records(b: dict, cfg: IntegrateConfig):
     """Phase 1: walk keys (K1) + end records + group compaction.
 
-    Returns ({'key': i32[N]} with key = flat << 1 | hit, stats) where stats
+    Returns (records, stats).  records: 'key' i32[N] with key = flat << 1 |
+    hit, 'end_flat' i32[B] and 'end_is_hit' bool[B] (the sample layers'
+    input), and with the traversal layer 'trav' f32[N] beside 'key'.  stats
     holds 0-dim tensors 'missed_updates', 'overflow', 'compaction_dropped'."""
     flags = cfg.ray_flags
     sentinel = cfg.sentinel
+    with_trav = cfg.with_traversal
     walk_flat, aux = expand_cuda.expand_keys(
-        b, cfg, exclude_origin=bool(flags & RayFlag.EXCLUDE_ORIGIN))
+        b, cfg, exclude_origin=bool(flags & RayFlag.EXCLUDE_ORIGIN), with_trav=with_trav)
     walk_missed_n = aux["missed_n"]
+    walk_trav = aux.get("trav")
     if flags & RayFlag.EXCLUDE_RAY:
         walk_flat = torch.full_like(walk_flat, sentinel)
         walk_missed_n = torch.zeros_like(walk_missed_n)
+        if with_trav:
+            walk_trav = torch.zeros_like(walk_trav)
     B, S = walk_flat.shape
 
     ray_valid = b["valid"]
@@ -82,34 +98,142 @@ def expand_records(b: dict, cfg: IntegrateConfig):
     end_active = end_is_hit | end_is_miss
 
     walk_keys = walk_flat.reshape(-1) << 1
+    if with_trav:
+        walk_trav = walk_trav.reshape(-1)
     compaction_dropped = torch.zeros((), dtype=torch.int64, device=walk_keys.device)
     G = cfg.group_size
     if cfg.group_cap and B % G == 0 and cfg.group_cap < G * S:
         # Sentinel keys sort to the back of each row, so cutting at group_cap
-        # drops only padding when the host's cap covers the row.  torch.sort
-        # is not stable on CUDA; no payload rides with the keys, so equal
-        # keys are interchangeable and the result is the same.
+        # drops only padding when the host's cap covers the row.
         rows = group_rows(walk_keys, B, S, G)
         limit = sentinel << 1
         n_valid = (rows < limit).sum()
-        rows = torch.sort(rows, dim=1).values[:, :cfg.group_cap]
+        if with_trav:
+            # Equal keys carry different traversal payloads: a stable sort
+            # keeps them in the reference's order (torch.sort on CUDA is
+            # not stable unless asked).
+            rows, order = torch.sort(rows, dim=1, stable=True)
+            tr = torch.gather(group_rows(walk_trav, B, S, G), 1, order)
+            walk_trav = tr[:, :cfg.group_cap].reshape(-1)
+        else:
+            # No payload rides with the keys: equal keys are
+            # interchangeable, so the unstable sort gives the same result.
+            rows = torch.sort(rows, dim=1).values
+        rows = rows[:, :cfg.group_cap]
         compaction_dropped = n_valid - (rows < limit).sum()
         walk_keys = rows.reshape(-1)
 
     end_keys = torch.where(end_active, end_flat, torch.full_like(end_flat, sentinel))
     key = torch.cat([walk_keys, (end_keys << 1) | end_is_hit.to(torch.int32)])
+    records = {"key": key, "end_flat": end_flat, "end_is_hit": end_is_hit}
+    if with_trav:
+        end_trav = b["length"] - aux["end_enter"]
+        end_trav = torch.where(end_active, end_trav, torch.zeros_like(end_trav))
+        records["trav"] = torch.cat([walk_trav, end_trav])
     stats = {
         "missed_updates": walk_missed_n + (end_active & end_missed).sum(),
         "overflow": (aux["overflow"] & ray_valid).sum(),
         "compaction_dropped": compaction_dropped,
     }
-    return {"key": key}, stats
+    return records, stats
 
 
-def apply_records(occupancy, records: dict, cfg: IntegrateConfig):
-    """Phase 2: sort the key stream, then deposit + sweep (K2) in place.
-    Returns the count of distinct touched voxels (0-dim tensor)."""
-    # One unstable sort is enough: the stream carries no payload.
-    key_s = torch.sort(records["key"]).values
+def _compact_lasts(ids_s: torch.Tensor, last: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """Positions (int64) of the voxel-last records of a sorted id stream,
+    the sentinel's left out: each touched voxel once."""
+    return torch.nonzero(last & (ids_s != sentinel)).squeeze(1)
+
+
+def apply_records(occupancy, records: dict, cfg: IntegrateConfig, traversal=None):
+    """Phase 2: sort the key stream, then deposit + sweep (K2) in place; with
+    the traversal layer (``traversal``, updated in place) each voxel's sum of
+    its records' traversal is added at its last record.  Returns the count
+    of distinct touched voxels (0-dim tensor)."""
+    if not cfg.with_traversal:
+        # One unstable sort is enough: the stream carries no payload.
+        key_s = torch.sort(records["key"]).values
+        _, touched = deposit_cuda.deposit_and_sweep(occupancy, key_s, cfg)
+        return touched
+    key_s, order = torch.sort(records["key"], stable=True)
+    trav_s = records["trav"][order]
+    # K2 reads only the keys: the counts are integers, so the occupancy bits
+    # do not depend on how equal keys were ordered.
     _, touched = deposit_cuda.deposit_and_sweep(occupancy, key_s, cfg)
+    ids_s = key_s >> 1
+    first, last = segments._first_last(ids_s)
+    sums = segments.segment_sums(trav_s, first)
+    at = _compact_lasts(ids_s, last, cfg.sentinel)
+    ids = ids_s[at].long()
+    traversal[ids] = traversal[ids] + sums[at]
     return touched
+
+
+def _u32_to_f32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held as int32 bit patterns -> f32 (as XLA converts)."""
+    return (x.long() & 0xFFFFFFFF).to(torch.float32)
+
+
+def apply_sample_layers(layers: dict, records: dict, b: dict, cfg: IntegrateConfig) -> None:
+    """Mean, touch-time and incident-normal updates from the batch's
+    end-voxel hits, in place on the arena ``layers`` (reference:
+    ``_apply_sample_layers``, ohm/RayMapperOccupancy.cpp:283-325).
+
+    The hits sort stably by voxel with their payloads; per voxel the sample
+    count, the mean and incident sums and the touch maximum reduce in the
+    reference's scan order (ops.segments.segment_reduce); then the mean
+    updates, then touch, then incident, which reads the mean count the mean
+    update has just stored.  Only voxels with a hit are written."""
+    sentinel = cfg.sentinel
+    end_is_hit = records["end_is_hit"]
+    s_ids = torch.where(end_is_hit, records["end_flat"],
+                        torch.full_like(records["end_flat"], sentinel))
+    hit = end_is_hit[:, None]
+    cols = [end_is_hit.to(torch.float32)[:, None]]
+    if cfg.with_mean:
+        cols.append(torch.where(hit, b["end_frac"], torch.zeros_like(b["end_frac"])))
+    if cfg.with_incident:
+        inc = -b["direction"]
+        cols.append(torch.where(hit, inc, torch.zeros_like(inc)))
+    s_sorted, order = torch.sort(s_ids, stable=True)
+    s_last, sums = segments.segment_reduce(s_sorted, torch.cat(cols, dim=1)[order], "sum")
+    at = _compact_lasts(s_sorted, s_last, sentinel)
+    ids = s_sorted[at].long()
+    sums = sums[at]
+    k = sums[:, 0]  # hits per voxel, at least 1 at every id
+    j = 1
+    if cfg.with_mean:
+        local_sums = sums[:, j:j + 3]
+        j += 3
+        old_coord = layers["mean_coord"][ids]
+        old_count_bits = layers["mean_count"][ids]
+        old_count = _u32_to_f32(old_count_bits)
+        old_mean = subvoxel.sub_voxel_to_local_coord(old_coord, cfg.resolution)
+        denom = torch.clamp(old_count + k, min=1.0)
+        new_mean = (old_mean * old_count[:, None] + local_sums) / denom[:, None]
+        layers["mean_coord"][ids] = subvoxel.sub_voxel_coord(new_mean, cfg.resolution)
+        # u32 add on int32 bit patterns: the same bits, wrapping alike.
+        layers["mean_count"][ids] = old_count_bits + k.to(torch.int32)
+    if cfg.with_touch_time:
+        # A u32 maximum: flipping bit 31 maps unsigned order onto int32's.
+        flip = -(1 << 31)
+        touch = torch.where(end_is_hit, b["touch_enc"], torch.zeros_like(b["touch_enc"]))
+        _, tmax = segments.segment_reduce(s_sorted, touch[order] ^ flip, "max")
+        layers["touch_time"][ids] = tmax[at] ^ flip
+    if cfg.with_incident:
+        inc_sums = sums[:, j:j + 3]
+        old_packed = layers["incident"][ids]
+        old_normal = subvoxel.decode_normal(old_packed)
+        has_old = torch.any(old_normal != 0, dim=-1)
+        if cfg.with_mean:
+            # The count stored by the mean update above, as the reference
+            # reads it after its scatter.
+            prior = torch.clamp(_u32_to_f32(layers["mean_count"][ids]) - k, min=0.0)
+        else:
+            prior = torch.zeros_like(k)
+        w = torch.where(has_old, prior, torch.zeros_like(prior))
+        merged = old_normal * w[:, None] + inc_sums
+        sq = merged * merged
+        norm = subvoxel.sqrt_f32(sq[:, 0] + sq[:, 1] + sq[:, 2])
+        unit = merged / torch.clamp(norm, min=1e-12)[:, None]
+        unit = torch.where((norm > 1e-6)[:, None], unit, torch.zeros_like(unit))
+        layers["incident"][ids] = subvoxel.encode_normal(unit)

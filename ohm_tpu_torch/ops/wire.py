@@ -7,10 +7,13 @@ Counterpart of the rayflow branch of ``_unpack_batch`` in
 
   gmeta i32[8] | floats f32[R,7] (start_frac, direction, length), or f32[R,4]
   (direction, length) under the start_frac dictionary | abs16 u16[R,6] |
-  [intensity f32[R]] | [frac dict f32[256,3] + frac idx u8[R]] | candidates
+  [touch u32[R]] | [intensity f32[R]] | [frac dict f32[256,3] + frac idx
+  u8[R]] | candidates
 
-The intensity block rides on the NDT wire (``cfg.rayw_intensity``); the
-port's wires carry no touch-time block.  abs16 words hold 11-bit
+The touch-time block rides when the map has a touch-time layer
+(``cfg.with_touch_time``): each ray's milliseconds since the map's first
+ray, kept as int32 bit patterns (``touch_enc``).  The intensity block rides
+on the NDT wire (``cfg.rayw_intensity``).  abs16 words hold 11-bit
 bbox-relative endpoint voxel coords; their 5 spare high bits carry valid,
 fold (end-as-miss) and the 16-bit source ray index ``ray_order`` (the host
 may permute wire rows; order-sensitive consumers key on it).
@@ -40,17 +43,18 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
     cdict = int(cfg.rayw_cdict)
     fdict = bool(cfg.rayw_fdict)
     fw = 4 if fdict else 7
+    touch_bpr = 4 if cfg.with_touch_time else 0
     intens_bpr = 4 if cfg.rayw_intensity else 0
     cand_bpr = {0: 4 * K, 1: K, 2: 2 * K}[cdict]
     cand_fixed = {0: 0, 1: 1024, 2: 8192}[cdict]
-    bpr = 4 * fw + 12 + intens_bpr + (1 if fdict else 0) + cand_bpr
+    bpr = 4 * fw + 12 + touch_bpr + intens_bpr + (1 if fdict else 0) + cand_bpr
     fixed = 32 + cand_fixed + (3072 if fdict else 0)
     R = (buf.shape[0] - fixed) // bpr
     if R <= 0 or R * bpr + fixed != buf.shape[0]:
         raise ValueError(
             f"wire of {buf.shape[0]} bytes does not match the layout "
             f"(K={K}, cdict={cdict}, fdict={fdict}, "
-            f"intensity={cfg.rayw_intensity})")
+            f"touch={cfg.with_touch_time}, intensity={cfg.rayw_intensity})")
     off = 0
 
     def take(nbytes):
@@ -65,6 +69,7 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
     a16raw = _view(take(12 * R), torch.int16, (R, 6)).to(torch.int32) & 0xFFFF
     a16 = a16raw & 0x7FF
     hi = a16raw >> 11
+    touch_enc = _view(take(4 * R), torch.int32, (R,)) if touch_bpr else None
     intensity = (_view(take(4 * R), torch.float32, (R,)) if intens_bpr
                  else torch.zeros(R, dtype=torch.float32, device=buf.device))
     if fdict:
@@ -97,7 +102,7 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
     end_frac = start_frac + (start_abs - end_abs).to(torch.float32) * f32(cfg.resolution)
     end_frac = end_frac + length[:, None] * direction
     ray_order = (hi[:, 0] >> 2) | (hi[:, 1] << 3) | (hi[:, 2] << 8) | (hi[:, 3] << 13)
-    return {
+    batch = {
         "start_abs": start_abs,
         "end_abs": end_abs,
         "start_frac": start_frac,
@@ -116,3 +121,6 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
         "t0": torch.zeros_like(length),
         "full_length": length,
     }
+    if touch_enc is not None:  # only maps with a touch-time layer read it
+        batch["touch_enc"] = touch_enc
+    return batch

@@ -3,9 +3,10 @@
 planes, missed counts, gathered flags, occupancy bits and touched counts
 must be identical, at the bench shape: 8192 box-scene rays, a 512-slot
 arena of 32^3 regions; the f32 gather and the TSDF pair deposit bit for
-bit over -0.0, infinities and NaN payloads.  TorchNdtMap and TorchTsdfMap on
-the card must agree with themselves on the CPU and give the same bits on
-every run.
+bit over -0.0, infinities and NaN payloads; the expand kernel's traversal
+output bit for bit on every lane.  TorchNdtMap, TorchTsdfMap and
+TorchRayMapper with the side layers on the card must agree with themselves
+on the CPU and give the same bits on every run.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -299,3 +300,65 @@ def test_tsdf_mapper_on_card_matches_cpu(cuda):
             assert np.array_equal(a.view(np.uint32), a2.view(np.uint32)), k
             np.testing.assert_allclose(a, c, atol=1e-5, rtol=1e-5)
         assert np.array_equal(card[k][0], cpu[k][0])  # weights equal
+
+
+@pytest.mark.parametrize("exclude_origin", [False, True])
+@pytest.mark.parametrize("with_vox", [False, True])
+def test_expand_traversal_matches_plain(bench_batch, exclude_origin, with_vox):
+    _, b, cfg = bench_batch
+    key, aux = expand_keys(b, cfg, exclude_origin=exclude_origin, with_trav=True,
+                           with_vox=with_vox)
+    ref = expand_keys_reference(b, cfg, exclude_origin=exclude_origin, with_vox=with_vox,
+                                with_trav=True)
+    torch.cuda.synchronize()
+    assert torch.equal(key, ref[0]) and int(aux["missed_n"]) == int(ref[1])
+    assert torch.equal(aux["trav"].view(torch.int32), ref[-1].view(torch.int32))
+    assert float(aux["trav"].sum()) > 1000.0
+    if with_vox:
+        live = ref[0] != cfg.sentinel
+        assert torch.equal(aux["vox"][live], ref[2][live])
+
+
+def _layers_run(device, use_async=False):
+    """A box scan in four timestamped batches on a map with all four side
+    layers; region -> member -> host array, and the stats."""
+    rng = np.random.default_rng(9)
+    flags = MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL
+    m = OccupancyMap(resolution=0.1, flags=flags)
+    mapper = TorchRayMapper(m, capacity=512, validate=True, device=device)
+    submit = mapper.integrate_rays_async if use_async else mapper.integrate_rays
+    for i in range(4):
+        submit(_box_rays(2048, rng), timestamps=20.0 + i + np.arange(2048) * 1e-4)
+    mapper.sync_voxels()
+    out = {}
+    for key, c in m.chunks.items():
+        for li, layer in enumerate(c.layers):
+            for f in layer.dtype.names:
+                out[(key, f)] = np.array(layer[f])
+    return out, mapper.stats
+
+
+def test_layers_mapper_on_card_matches_cpu(cuda):
+    card, stats = _layers_run(cuda)
+    card2, _ = _layers_run(cuda)
+    queued, queued_stats = _layers_run(cuda, use_async=True)
+    cpu, cpu_stats = _layers_run("cpu")
+    assert stats == cpu_stats == queued_stats and stats["batches"] == 4
+    assert card.keys() == card2.keys() == queued.keys() == cpu.keys() and len(card) > 0
+    members = {k[1] for k in card}
+    assert members >= {"occupancy", "coord", "count", "traversal", "touch", "packed_normal"}
+    codes = {"coord": [], "packed_normal": []}
+    for k in card:
+        assert np.array_equal(card[k].view(np.uint32), card2[k].view(np.uint32)), k
+        assert np.array_equal(card[k].view(np.uint32), queued[k].view(np.uint32)), k
+        a, c = card[k], cpu[k]
+        if k[1] == "traversal":
+            np.testing.assert_allclose(a, c, atol=1e-5, rtol=1e-5)
+        elif k[1] in codes:
+            written = (a != 0) | (c != 0)
+            codes[k[1]].append(a[written] == c[written])
+        else:  # occupancy bits, mean counts and touch times
+            assert np.array_equal(a.view(np.uint32), c.view(np.uint32)), k
+    for member, same in codes.items():
+        same = np.concatenate(same)
+        assert same.size > 1000 and same.mean() >= 0.999, member

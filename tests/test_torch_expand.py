@@ -118,5 +118,8 @@ def test_expand_keys_on_cpu_is_the_plain_version():
     assert not bool(aux["overflow"].any())
     # The end voxel's enter time: max over axes of each axis's last event.
     assert bool((aux["end_enter"] >= 0).all())
-    with pytest.raises(NotImplementedError):
-        expand_keys(b, port_cfg, with_trav=True)
+    # The traversal output is its plain version's, bit for bit.
+    flat_t, aux_t = expand_keys(b, port_cfg, exclude_origin=True, with_trav=True)
+    trav = expand_keys_reference(b, port_cfg, exclude_origin=True, with_trav=True)[-1]
+    assert torch.equal(flat_t, ref_flat)
+    assert torch.equal(aux_t["trav"].view(torch.int32), trav.view(torch.int32))

@@ -48,6 +48,14 @@ for per_visit in (True, False):
     tsdf.integrate_rays(rays)
     tsdf.sync_voxels()
     assert tsdf.stats["batches"] == 1 and len(m.chunks) > 0
+from ohm_tpu_torch.core.map import MapFlag
+m = OccupancyMap(resolution=0.1, flags=MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL
+                 | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL)
+layers = ohm_tpu_torch.TorchRayMapper(m, capacity=64, validate=True, device="cpu")
+for i in range(2):
+    layers.integrate_rays_async(rays, timestamps=10.0 + i + np.arange(64) * 1e-3)
+layers.sync_voxels()
+assert layers.stats["batches"] == 2 and len(m.chunks) > 0
 print(sorted(n for n in sys.modules if n == "jax" or n.startswith(("jax.", "ohm_tpu."))
              or n == "ohm_tpu"))
 """
@@ -85,17 +93,25 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
+    m = OccupancyMap(resolution=0.1, flags=MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL
+                     | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL)
+    mapper = TorchRayMapper(m, capacity=64, device="cpu")
+    assert sorted(mapper.arena.layers) == ["incident", "mean_coord", "mean_count",
+                                           "occupancy", "touch_time", "traversal"]
+    m.layout.add_intensity()  # an NDT-TM layer the occupancy mapper does not update
     with pytest.raises(NotImplementedError, match="occupancy"):
-        TorchRayMapper(OccupancyMap(resolution=0.1, flags=MapFlag.VOXEL_MEAN),
-                       capacity=64, device="cpu")
+        TorchRayMapper(m, capacity=64, device="cpu")
     with pytest.raises(ValueError, match="segmented"):
         TorchRayMapper(OccupancyMap(resolution=0.1), capacity=8192, device="cpu")
     mapper = TorchRayMapper(OccupancyMap(resolution=0.1), capacity=64, device="cpu")
     rays = np.array([[0.0, 0.0, 0.0], [1.0, 0.5, 0.2]])
     with pytest.raises(NotImplementedError, match="STOP_ON_FIRST_OCCUPIED"):
         mapper.integrate_rays(rays, ray_update_flags=RayFlag.STOP_ON_FIRST_OCCUPIED)
-    with pytest.raises(NotImplementedError):
-        mapper.integrate_rays_async(rays)
+    with pytest.raises(NotImplementedError, match="STOP_ON_FIRST_OCCUPIED"):
+        mapper.integrate_rays_async(rays, ray_update_flags=RayFlag.STOP_ON_FIRST_OCCUPIED)
+    assert mapper.integrate_rays_async(rays) == 1
+    mapper.flush()
+    assert mapper.stats["batches"] == 1
     # A ray over 32 regions (0.8 m regions, 40 m ray) leaves the rayflow
     # envelope; the segmented wire is not ported.
     fine = TorchRayMapper(OccupancyMap(resolution=0.1, region_voxel_dims=8),
@@ -108,6 +124,7 @@ def test_what_is_not_ported_under_ndt_raises():
     from ohm_tpu_torch import TorchNdtMap
     from ohm_tpu_torch.oracle.ndt import NdtParams
     from ohm_tpu_torch.ops.expand_cuda import expand_keys
+    from ohm_tpu_torch.ops.wire import unpack_batch
 
     for flag in (MapFlag.TRAVERSAL, MapFlag.TOUCH_TIME, MapFlag.INCIDENT_NORMAL):
         with pytest.raises(NotImplementedError, match="NDT"):
@@ -121,10 +138,27 @@ def test_what_is_not_ported_under_ndt_raises():
                          device="cpu")
     assert mapper.arena.occupancy_encoding == "inf"
     assert torch.isposinf(mapper.arena.occupancy).all()
-    with pytest.raises(NotImplementedError):
-        mapper.integrate_rays_async(np.zeros((2, 3)))
-    with pytest.raises(NotImplementedError, match="with_trav"):
-        expand_keys({}, mapper._config(0), with_trav=True)
+    # The worker is the base mapper's: queued NDT batches give the map the
+    # synchronous calls give.
+    rays = np.zeros((64, 3))
+    rays[1::2] = np.random.default_rng(4).uniform(-2, 2, (32, 3))
+    maps = []
+    for submit in ("integrate_rays", "integrate_rays_async"):
+        m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
+        ndt = TorchNdtMap(m, capacity=64, validate=True, device="cpu")
+        for _ in range(2):
+            getattr(ndt, submit)(rays)
+        ndt.sync_voxels()
+        maps.append({k: c.layers[m.layer_index("occupancy")]["occupancy"].copy()
+                     for k, c in m.chunks.items()})
+    assert maps[0].keys() == maps[1].keys() and len(maps[0]) > 0
+    assert all(np.array_equal(maps[0][k].view(np.uint32), maps[1][k].view(np.uint32))
+               for k in maps[0])
+    # K1's traversal output runs beside the voxel planes.
+    wire, cfg, _ = ndt._rayflow_setup_host(rays, None, None, 0)
+    b = unpack_batch(torch.from_numpy(wire), cfg)
+    _, aux = expand_keys(b, cfg, with_trav=True, with_vox=True)
+    assert aux["trav"].shape == aux["vox"].shape[:2] and float(aux["trav"].sum()) > 0
 
 
 def test_build_takes_every_cuda_source_for_hopper():
@@ -146,5 +180,7 @@ def test_what_is_not_ported_under_tsdf_raises():
     assert sorted(mapper.arena.layers) == ["occupancy", "tsdf_distance", "tsdf_weight"]
     with pytest.raises(NotImplementedError, match="segmented"):
         mapper.integrate_rays(np.array([[0.0, 0.0, 0.0], [40.0, 0.0, 0.0]]))
-    with pytest.raises(NotImplementedError):
-        mapper.integrate_rays_async(np.zeros((2, 3)))
+    rays = np.array([[0.0, 0.0, 0.0], [1.0, 0.5, 0.2]])
+    assert mapper.integrate_rays_async(rays) == 1
+    mapper.sync_voxels()
+    assert mapper.stats["batches"] == 1
