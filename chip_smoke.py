@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the ohm_tpu_torch occupancy (with and without its side layers), NDT
-and TSDF paths once on one NVIDIA GPU.
+and TSDF paths and the deposit probe once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
 
@@ -115,10 +115,26 @@ exit code is not 0 and no result line is printed:
                K5 and K6 on the arguments this path gave them in one batch,
                each against its plain version bit for bit
 
+  p_path       the deposit probe's own path (P), through its entry point
+               (ohm_tpu_torch.scripts.probe_deposit main) at full size: the
+               five probes, the slot-grid deposit, the one-hot and scatter
+               deposits and K3 on one bench-shaped stream (1,250,304 keys,
+               512 slots, 320 live), every launch counted
+  p_probes     each probe's kernel against its plain version and its expected
+               array, bit for bit
+  p_slotgrid   the slot-grid kernel against its plain version at full size
+               and on the edge streams, fused and unfused, bit for bit; the
+               fused result against the f64 reference (f32 roundings, no
+               gate), and bit for bit against scatter_deposit and K3
+  p_times      the slot-grid kernel beside its plain version, K3,
+               scatter_deposit and onehot_deposit on the same stream, each
+               probe beside its plain version, and their bounds
+
 Then one JSON line of the kernels (each with its bound: the bytes it must
-move over 3.35 TB/s or its operations over 67 TFLOP/s, whichever is longer,
-and the time of one PyTorch call that computes the same function, where
-there is one), nvidia-smi's line, and the result line
+move over 3.35 TB/s or its operations over 67 TFLOP/s (bf16 matrix work
+over 989 TFLOP/s), whichever is longer, and the time of one PyTorch call
+that computes the same function, where there is one), nvidia-smi's line,
+and the result line
 {"ok": true, "device": {...}}.  The script uses the port alone, with its own
 host layer (ohm_tpu_torch.core, .oracle, .native); it fails if JAX or any
 module of ohm_tpu was imported.
@@ -128,6 +144,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -151,9 +168,11 @@ from ohm_tpu_torch.core.rayflags import RayFlag
 from ohm_tpu_torch.oracle.ndt import NdtParams, RayMapperNdt
 from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
 from ohm_tpu_torch.oracle.tsdf import RayMapperTsdf, TsdfOptions
-from ohm_tpu_torch.ops import _build, deposit_cuda, expand_cuda, gather_cuda
+from ohm_tpu_torch.ops import (_build, deposit_cuda, expand_cuda, gather_cuda, probes_cuda,
+                               slotgrid_cuda)
 from ohm_tpu_torch.ops.integrate import apply_records, apply_sample_layers, expand_records
 from ohm_tpu_torch.ops.wire import unpack_batch
+from ohm_tpu_torch.scripts import probe_deposit
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -188,10 +207,12 @@ OUTDOOR_BATCHES = 12
 OUTDOOR_WARMUP = 6
 # Port on the card against the port on the CPU.
 PORT_TOL = {"atol": 1e-5, "rtol": 1e-5, "mean_code_identical": 0.999}
-# One H100 SXM (NVIDIA's data sheet): HBM rate, and the f32 rate outside the
-# tensor cores, at which integer ops are counted too.
+# One H100 SXM (NVIDIA's data sheet): HBM rate, the f32 rate outside the
+# tensor cores, at which integer ops are counted too, and the dense bf16
+# tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -242,16 +263,32 @@ def outdoor_rays(n, rng, extent=40.0, sensor_height=1.5):
     return rays
 
 
+@contextlib.contextmanager
+def without_gc_pauses():
+    """A timed region free of the cyclic collector's pauses, as timeit's:
+    collect first, then keep the collector off until the region ends.  A
+    full collection over this script's heap (its oracle maps and batches,
+    300k-600k tracked objects) takes 0.2-0.8 s on the card's host, and one
+    that lands inside a 12-batch loop cuts that loop's rays/s by 3-4x."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def cuda_ms(fn, reps: int = 20) -> float:
     """Mean ms per call of ``fn`` on the current stream (CUDA events)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with without_gc_pauses():
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -261,15 +298,16 @@ def plain_vs_kernel_ms(plain, kernel, reps: int = 20) -> tuple[float, float]:
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, tensor_ops: int = 0) -> dict:
     """The least time the card could take for a kernel's work: the bytes it
     must move (each input read once, each output written once) over the HBM
-    rate, or its operations over the scalar rate, whichever is longer."""
+    rate, or its operations over the scalar rate (plus its bf16 matrix
+    operations over the tensor-core rate), whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = (ops / SCALAR_OPS_PER_S + tensor_ops / BF16_TENSOR_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": int(nbytes), "bound_ops": int(ops)}
+            "bound_bytes": int(nbytes), "bound_ops": int(ops + tensor_ops)}
 
 
 def distinct(ids: torch.Tensor, sentinel: int) -> int:
@@ -799,7 +837,8 @@ def profile_main_path(mapper, batches, path: str = "occupancy", intens=None,
     """torch.profiler over synchronous integrate_rays calls: device time by
     kernel and the device's idle share of the window."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with without_gc_pauses(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i, b in enumerate(batches):
             mapper.integrate_rays(b, intensities=None if intens is None else intens[i],
@@ -839,11 +878,12 @@ def phase_bench(k1: dict) -> dict:
     # The main path, counted: every count is 0 just before it.
     expand_cuda.expand_keys.launches = 0
     deposit_cuda.deposit_and_sweep.launches = 0
-    t0 = time.perf_counter()
-    for b in batches:
-        mapper.integrate_rays(b)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for b in batches:
+            mapper.integrate_rays(b)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = {"expand_keys": expand_cuda.expand_keys.launches,
                 "deposit_and_sweep": deposit_cuda.deposit_and_sweep.launches}
     stats = mapper.stats
@@ -1095,16 +1135,19 @@ def device_and_host_ms(mapper, batches, stamps=None):
     to a synchronize), per batch; returns (host_prep_ms, device_ms, wires,
     setups).  The arena already holds every region of the batches."""
     stamps = stamps or [None] * len(batches)
-    t0 = time.perf_counter()
-    setups = [mapper._rayflow_setup_host(b, ts, None, 0) for b, ts in zip(batches, stamps)]
-    host_prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        setups = [mapper._rayflow_setup_host(b, ts, None, 0) for b, ts in zip(batches, stamps)]
+        host_prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
     wires = [torch.from_numpy(w).cuda() for w, _, _ in setups]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for w, (_, cfg, n) in zip(wires, setups):
-        mapper._dispatch(w, cfg, n)
-    torch.cuda.synchronize()
-    return host_prep_ms, (time.perf_counter() - t0) / len(batches) * 1e3, wires, setups
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for w, (_, cfg, n) in zip(wires, setups):
+            mapper._dispatch(w, cfg, n)
+        torch.cuda.synchronize()
+        device_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    return host_prep_ms, device_ms, wires, setups
 
 
 def phase_layers_bench() -> dict:
@@ -1150,11 +1193,12 @@ def phase_layers_bench() -> dict:
         fn.launches = 0
     batches_before = mapper.stats["batches"]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for rays, ts in zip(batches, stamps):
-        mapper.integrate_rays(rays, timestamps=ts)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for rays, ts in zip(batches, stamps):
+            mapper.integrate_rays(rays, timestamps=ts)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
@@ -1252,12 +1296,13 @@ def phase_outdoor_mean_bench() -> dict:
         fn.launches = 0
     batches_before = mapper.stats["batches"]
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for rays in batches:
-        mapper.integrate_rays_async(rays)
-    mapper.flush()
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for rays in batches:
+            mapper.integrate_rays_async(rays)
+        mapper.flush()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
@@ -1342,11 +1387,12 @@ def phase_ndt_om_bench() -> dict:
                 "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt}
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    for b in batches:
-        mapper.integrate_rays(b)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for b in batches:
+            mapper.integrate_rays(b)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     stats = mapper.stats
     timed_overflow = stats["ndt_overflow"] - overflow_before
@@ -1486,11 +1532,13 @@ def phase_ndt_tm_frame() -> None:
     intens = rng.uniform(0.0, 1.0, TM_FRAME_RAYS).astype(np.float32)
     step = 2 * RAYS_PER_BATCH
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(0, frame.shape[0], step):
-        mapper.integrate_rays(frame[i:i + step], intensities=intens[i // 2:i // 2 + RAYS_PER_BATCH])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for i in range(0, frame.shape[0], step):
+            mapper.integrate_rays(frame[i:i + step],
+                                  intensities=intens[i // 2:i // 2 + RAYS_PER_BATCH])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped"):
         if stats[name]:
@@ -1773,11 +1821,12 @@ def phase_tsdf_bench() -> dict:
                 "tsdf_set_deposit": deposit_cuda.tsdf_set_deposit}
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    for b in batches:
-        mapper.integrate_rays(b)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for b in batches:
+            mapper.integrate_rays(b)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
@@ -1815,6 +1864,190 @@ def phase_tsdf_bench() -> dict:
     return {**calls, "launches": launches, "max_abs_err": errs}
 
 
+def probe_work() -> dict:
+    """Each probe's work as (bytes, operations, bf16 tensor-core operations):
+    its input and output bytes (the bulk copy reads only its four rows), an
+    operation an output element (the loop: one a trip), and the one-hot
+    product counted densely (2 x 64 x 512 a record)."""
+    out = {}
+    for name, args in probes_cuda.probe_inputs("cpu").items():
+        want = probes_cuda.expected_outputs()[name]
+        nbytes = sum(a.numel() * a.element_size() for a in args) + want.nbytes
+        ops, tensor_ops = want.size, 0
+        if name == "dyn_offset_dma":
+            nbytes = 4 + 2 * want.nbytes
+        if name == "dynamic_fori":
+            ops = int(args[0][0])
+        if name == "onehot_mxu_dot":
+            ops, tensor_ops = args[0].numel(), 2 * want.size * args[0].numel()
+        out[name] = (nbytes, ops, tensor_ops)
+    return out
+
+
+def check_probes(found: dict) -> dict:
+    """Each probe's kernel against its plain version and its expected array,
+    bit for bit, beside what the probe path reported."""
+    inputs = probes_cuda.probe_inputs("cuda")
+    expected = probes_cuda.expected_outputs()
+    rows = {}
+    for name, fn in probes_cuda.PROBES.items():
+        out_k = fn(*inputs[name])
+        out_p = probes_cuda.PLAIN[name](*inputs[name])
+        torch.cuda.synchronize()
+        same = torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+        rows[name] = {"status": found[name][0], "first_values": found[name][1],
+                      "max_abs_err": float((out_k.double() - out_p.double()).abs().max()),
+                      "bit_identical": bool(same),
+                      "equals_expected": bool(np.array_equal(out_k.cpu().numpy(), expected[name]))}
+    emit({"phase": "p_probes", "tolerance": 0, "probes": rows})
+    bad = {n: r for n, r in rows.items()
+           if r["status"] != "OK" or not (r["bit_identical"] and r["equals_expected"])}
+    if bad:
+        raise AssertionError(f"a deposit probe failed or differs from its plain version: {bad}")
+    return rows
+
+
+def check_slotgrid(keys, occ_flat, c: int) -> dict:
+    """The slot-grid kernel against its plain version on the card, bit for
+    bit, fused and unfused, at full size and on the edge streams; the fused
+    result against the f64 reference (f32 roundings, no gate), the scatter
+    yardstick and K3 (bit for bit)."""
+    n_vox = c * probe_deposit.V
+    bounds = slotgrid_cuda.part_bounds(keys, c)
+    rows, errs, fused = {}, [], None
+    for fuse in (True, False):
+        out_k = slotgrid_cuda.slotgrid_deposit(keys, occ_flat.clone(), bounds, fuse_sweep=fuse,
+                                               **probe_deposit.SWEEP)
+        out_p = slotgrid_cuda.slotgrid_deposit_reference(keys, occ_flat.clone(), bounds,
+                                                         fuse_sweep=fuse, **probe_deposit.SWEEP)
+        torch.cuda.synchronize()
+        errs.append(finite_err(out_k, out_p))
+        rows["fused" if fuse else "counts"] = {"max_abs_err": errs[-1],
+                                               "bit_identical": same_bits(out_k, out_p)}
+        fused = out_k if fuse else fused
+    for name in probe_deposit.EDGE_STREAMS:
+        ek, eo, ec = probe_deposit.edge_stream(name)
+        ek, eo = torch.from_numpy(ek).cuda(), torch.from_numpy(eo).cuda()
+        eb = slotgrid_cuda.part_bounds(ek, ec)
+        same = True
+        for fuse in (True, False):
+            out_k = slotgrid_cuda.slotgrid_deposit(ek, eo.clone(), eb, fuse_sweep=fuse,
+                                                   **probe_deposit.SWEEP)
+            out_p = slotgrid_cuda.slotgrid_deposit_reference(ek, eo.clone(), eb, fuse_sweep=fuse,
+                                                             **probe_deposit.SWEEP)
+            torch.cuda.synchronize()
+            errs.append(finite_err(out_k, out_p))
+            same = same and same_bits(out_k, out_p)
+        rows[f"edge_{name}"] = {"bit_identical": bool(same)}
+    ref = probe_deposit.np_reference(keys.cpu().numpy(), occ_flat[:n_vox].cpu().numpy(), c)
+    host = fused[:n_vox].cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        worst = float(np.max(np.abs(np.nan_to_num(host - ref, posinf=0))))
+    yardstick = slotgrid_cuda.scatter_deposit(keys, occ_flat, c, **probe_deposit.SWEEP)[:n_vox]
+    k3 = probe_deposit.k3_deposit(keys, occ_flat.clone(), probe_deposit.k3_config(c),
+                                  torch.zeros(n_vox, device=keys.device))[:n_vox]
+    parts = bounds[1:] - bounds[:-1]
+    row = {"keys": keys.numel(), "slots": c, "touched_voxels": distinct(keys >> 1, n_vox),
+           "largest_part_records": int(parts.max()), "live_parts": int((parts > 0).sum()),
+           "largest_count": probe_deposit.largest_count(keys, c), **rows,
+           "f64_reference": {"mismatches": int(np.sum(host != ref)), "worst": worst},
+           "scatter_bit_mismatches": int((fused[:n_vox].view(torch.int32)
+                                          != yardstick.view(torch.int32)).sum()),
+           "k3_bit_mismatches": int((fused[:n_vox].view(torch.int32)
+                                     != k3.view(torch.int32)).sum()),
+           "k3_vs_scatter_bit_mismatches": int((k3.view(torch.int32)
+                                                != yardstick.view(torch.int32)).sum())}
+    emit({"phase": "p_slotgrid", "tolerance": 0, **row})
+    ok = (all(r["bit_identical"] for r in rows.values()) and row["scatter_bit_mismatches"] == 0
+          and row["k3_bit_mismatches"] == 0 and row["k3_vs_scatter_bit_mismatches"] == 0
+          and row["largest_count"] < deposit_cuda.COUNT_CAP)
+    if not ok:
+        raise AssertionError(f"the slot-grid deposit differs: {row}")
+    return {**row, "max_abs_err": max(errs)}
+
+
+def phase_p() -> dict:
+    """P: the deposit probe's own path, through its entry point at full
+    size, counted; then each probe and the slot-grid kernel against their
+    plain versions and the yardsticks, and their times beside K3's,
+    scatter_deposit's and onehot_deposit's on the same stream."""
+    counters = {**{f"probe:{n}": fn for n, fn in probes_cuda.PROBES.items()},
+                "slotgrid_deposit": slotgrid_cuda.slotgrid_deposit}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    found = probe_deposit.main(["--iters", "5"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    emit({"phase": "p_path", "seconds": seconds, "launches": launches, "ok": found["ok"],
+          **{k: found[k] for k in ("slotgrid", "onehot", "scatter")}})
+    if not found["ok"] or min(launches.values()) <= 0:
+        raise AssertionError(f"the deposit probe failed or a kernel never launched: {launches}")
+
+    probes = check_probes(found["probes"])
+    n, c, live = probe_deposit.N, probe_deposit.C, probe_deposit.LIVE
+    keys = torch.from_numpy(probe_deposit.make_stream(n, c, live)).cuda()
+    occ_flat = torch.from_numpy(probe_deposit.initial_occupancy(n, c)).cuda()
+    grid = check_slotgrid(keys, occ_flat, c)
+
+    inputs = probes_cuda.probe_inputs("cuda")
+    probe_ms, probe_plain_ms = {}, {}
+    for name, fn in probes_cuda.PROBES.items():
+        probe_plain_ms[name], probe_ms[name] = plain_vs_kernel_ms(
+            lambda: probes_cuda.PLAIN[name](*inputs[name]), lambda: fn(*inputs[name]))
+    bounds = slotgrid_cuda.part_bounds(keys, c)
+    n_vox = c * probe_deposit.V
+    occ_k, occ_p = occ_flat.clone(), occ_flat.clone()
+    sweep = probe_deposit.SWEEP
+    plain_ms, kernel_ms = plain_vs_kernel_ms(
+        lambda: slotgrid_cuda.slotgrid_deposit_reference(keys, occ_p, bounds, **sweep),
+        lambda: slotgrid_cuda.slotgrid_deposit(keys, occ_k, bounds, **sweep))
+    counts_ms = cuda_ms(lambda: slotgrid_cuda.slotgrid_deposit(keys, occ_k, bounds,
+                                                               fuse_sweep=False, **sweep))
+    with_bounds_ms = cuda_ms(lambda: probe_deposit.deposit(keys, occ_k, c))
+    cfg, delta = probe_deposit.k3_config(c), torch.zeros(n_vox, device=keys.device)
+    occ_3 = occ_flat.clone()
+    scatter_ms, k3_ms = plain_vs_kernel_ms(
+        lambda: slotgrid_cuda.scatter_deposit(keys, occ_flat, c, **sweep),
+        lambda: probe_deposit.k3_deposit(keys, occ_3, cfg, delta))
+    onehot_ms = cuda_ms(lambda: slotgrid_cuda.onehot_deposit(keys, occ_flat[:n_vox], c, **sweep),
+                        reps=5)
+    touched = grid["touched_voxels"]
+    work = probe_work()
+    times = {"slotgrid_ms": kernel_ms, "slotgrid_plain_ms": plain_ms,
+             "slotgrid_counts_ms": counts_ms, "slotgrid_with_bounds_ms": with_bounds_ms,
+             "k3_ms": k3_ms, "scatter_deposit_ms": scatter_ms, "onehot_deposit_ms": onehot_ms,
+             "probe_ms": probe_ms, "probe_plain_ms": probe_plain_ms}
+    # The function's work: each key read once, each touched voxel read and
+    # written once; ~5 operations a key, ~12 a touched voxel's sweep.
+    slot_bound = bound(4 * keys.numel() + 8 * touched, 5 * keys.numel() + 12 * touched)
+    # The TPU design's traffic: every live slot's 128 KB occupancy plane read
+    # and written, plus the keys.
+    per_slot = (bounds[slotgrid_cuda.PARTS::slotgrid_cuda.PARTS]
+                - bounds[:-1:slotgrid_cuda.PARTS])
+    live_slots = int((per_slot > 0).sum())
+    design = bound(live_slots * 2 * 4 * probe_deposit.V + 4 * keys.numel(), 0)
+    probe_bound = bound(*(sum(w[i] for w in work.values()) for i in range(3)))
+    emit({"phase": "p_times", **times, "slotgrid_bound": slot_bound,
+          "tpu_design_bound": {**design, "live_slots": live_slots},
+          "probe_bounds": {name: bound(*w) for name, w in work.items()},
+          "largest_part_records": grid["largest_part_records"]})
+    return {"launches": {"deposit_probes": sum(v for k, v in launches.items()
+                                               if k.startswith("probe:")),
+                         "slotgrid_deposit": launches["slotgrid_deposit"]},
+            "probe_launches": {k.split(":", 1)[1]: v for k, v in launches.items()
+                               if k.startswith("probe:")},
+            "ms": {"deposit_probes": sum(probe_ms.values()), "slotgrid_deposit": kernel_ms},
+            "plain_ms": {"deposit_probes": sum(probe_plain_ms.values()),
+                         "slotgrid_deposit": plain_ms},
+            "bound": {"deposit_probes": probe_bound, "slotgrid_deposit": slot_bound},
+            "library_ms": {"deposit_probes": None, "slotgrid_deposit": None},
+            "max_abs_err": {"deposit_probes": max(r["max_abs_err"] for r in probes.values()),
+                            "slotgrid_deposit": grid["max_abs_err"]},
+            "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU",
@@ -1842,6 +2075,7 @@ def main() -> int:
     k6 = phase_k6()
     phase_tsdf_hardware_differential()
     tsdf = phase_tsdf_bench()
+    p = phase_p()
     foreign = sorted(n for n in sys.modules if n in ("jax", "ohm_tpu")
                      or n.startswith(("jax.", "ohm_tpu.")))
     if foreign:
@@ -1852,7 +2086,7 @@ def main() -> int:
         ms, plain_ms, bound and library_ms on that path's arguments."""
         lib = path.get("library_ms", {}).get(name)
         return {"name": name, "route": "cuda", "source": f"ohm_tpu_torch/csrc/{source}",
-                "replaces": f"ohm_tpu/ops/{replaces}", "launches": path["launches"][name],
+                "replaces": replaces, "launches": path["launches"][name],
                 "max_abs_err": err, "ms": path["ms"][name], "plain_ms": path["plain_ms"][name],
                 **path["bound"][name], "library_ms": lib, **extra}
 
@@ -1860,7 +2094,7 @@ def main() -> int:
     # on the side-layer path with its traversal output, on the outdoor mean
     # path, and on the NDT-OM and TSDF paths with voxel planes.
     emit({"kernels": [
-        row("expand_keys", "expand.cu", "expand_pallas.py:185", bench,
+        row("expand_keys", "expand.cu", "ohm_tpu/ops/expand_pallas.py:185", bench,
             max(k1["max_abs_err"], k1_trav["max_abs_err"], k1_vox["max_abs_err"],
                 layers["max_abs_err"]["expand_keys"], outdoor["max_abs_err"]["expand_keys"],
                 ndt["max_abs_err"]["expand_keys"], tsdf["max_abs_err"]["expand_keys"]),
@@ -1875,19 +2109,27 @@ def main() -> int:
             with_vox_ms=tsdf["ms"]["expand_keys"],
             with_vox_plain_ms=tsdf["plain_ms"]["expand_keys"],
             with_vox_bound_ms=tsdf["bound"]["expand_keys"]["bound_ms"]),
-        row("deposit_and_sweep", "deposit.cu", "deposit_pallas.py:439", bench,
+        row("deposit_and_sweep", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:439", bench,
             max(k2["max_abs_err"], layers["max_abs_err"]["deposit_and_sweep"],
                 outdoor["max_abs_err"]["deposit_and_sweep"]),
             layers_launches=layers["launches"]["deposit_and_sweep"],
             outdoor_mean_launches=outdoor["launches"]["deposit_and_sweep"]),
-        row("deposit_and_sweep_ndt", "deposit.cu", "deposit_pallas.py:449", ndt,
+        row("deposit_and_sweep_ndt", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:449", ndt,
             max(k3["max_abs_err"], ndt["max_abs_err"]["deposit_and_sweep_ndt"])),
-        row("gather_plane", "gather.cu", "deposit_pallas.py:479", ndt,
+        row("gather_plane", "gather.cu", "ohm_tpu/ops/deposit_pallas.py:479", ndt,
             max(k4["max_abs_err"], ndt["max_abs_err"]["gather_plane"])),
-        row("gather_planes_f32", "gather.cu", "deposit_pallas.py:598", tsdf,
+        row("gather_planes_f32", "gather.cu", "ohm_tpu/ops/deposit_pallas.py:598", tsdf,
             max(k5["max_abs_err"], tsdf["max_abs_err"]["gather_planes_f32"])),
-        row("tsdf_set_deposit", "deposit.cu", "deposit_pallas.py:726", tsdf,
+        row("tsdf_set_deposit", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:726", tsdf,
             max(k6["max_abs_err"], tsdf["max_abs_err"]["tsdf_set_deposit"])),
+        # P's path is the deposit probe's own entry point.
+        row("deposit_probes", "probes.cu", "scripts/probe_deposit.py:114", p,
+            p["max_abs_err"]["deposit_probes"], probe_launches=p["probe_launches"],
+            probe_ms=p["times"]["probe_ms"], probe_plain_ms=p["times"]["probe_plain_ms"]),
+        row("slotgrid_deposit", "slotgrid.cu", "scripts/probe_deposit.py:218", p,
+            p["max_abs_err"]["slotgrid_deposit"],
+            **{k: p["times"][k] for k in ("slotgrid_counts_ms", "slotgrid_with_bounds_ms",
+                                          "k3_ms", "scatter_deposit_ms", "onehot_deposit_ms")}),
     ]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

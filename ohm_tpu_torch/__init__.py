@@ -26,6 +26,9 @@ Layer map (each module names its ``ohm_tpu`` counterpart):
   ops/expand_cuda    K1 wrapper  -> csrc/expand.cu  (ohm_tpu/ops/expand_pallas.py)
   ops/deposit_cuda   K2, K3, K6  -> csrc/deposit.cu (ohm_tpu/ops/deposit_pallas.py)
   ops/gather_cuda    K4, K5      -> csrc/gather.cu  (ohm_tpu/ops/deposit_pallas.py)
+  ops/probes_cuda    P-A probes  -> csrc/probes.cu  (scripts/probe_deposit.py)
+  ops/slotgrid_cuda  P-B deposit -> csrc/slotgrid.cu (scripts/probe_deposit.py)
+  scripts/probe_deposit  the deposit probe's entry point (scripts/probe_deposit.py)
 """
 
 __version__ = "0.1.0"

@@ -57,6 +57,15 @@ _SIGNATURES = {
     "ohm_gather_planes_f32": [_P, _P, _P, _I, _I, _P, _P, _P],
     # weight plane, distance plane, ids, w, d, n, sentinel, stream
     "ohm_tsdf_set_deposit": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # keys, bounds, n_parts, occupancy, hit_value, miss_value, min_value,
+    # max_value, fuse_sweep, stream
+    "ohm_slotgrid_deposit": [_P, _P, _I, _P, _F, _F, _F, _F, _I, _P],
+    # The deposit probes (csrc/probes.cu): inputs, sizes, out, stream.
+    "ohm_probe_scatter_add": [_P, _I, _P, _P],
+    "ohm_probe_take_along": [_P, _P, _P, _P],
+    "ohm_probe_dynamic_loop": [_P, _P, _P],
+    "ohm_probe_bulk_copy": [_P, _P, _I, _P, _P],
+    "ohm_probe_onehot_mma": [_P, _I, _P, _P],
 }
 
 _lib = None

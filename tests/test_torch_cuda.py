@@ -4,7 +4,9 @@ planes, missed counts, gathered flags, occupancy bits and touched counts
 must be identical, at the bench shape: 8192 box-scene rays, a 512-slot
 arena of 32^3 regions; the f32 gather and the TSDF pair deposit bit for
 bit over -0.0, infinities and NaN payloads; the expand kernel's traversal
-output bit for bit on every lane.  TorchNdtMap, TorchTsdfMap and
+output bit for bit on every lane; the five deposit probes and the slot-grid
+deposit (on the probe's bench-shaped stream and its edge streams) bit for
+bit, the slot-grid deposit and K3 equal to the scatter yardstick.  TorchNdtMap, TorchTsdfMap and
 TorchRayMapper with the side layers on the card must agree with themselves
 on the CPU and give the same bits on every run.
 
@@ -23,6 +25,7 @@ from ohm_tpu_torch.core.map import MapFlag, OccupancyMap
 from ohm_tpu_torch.core.rayflags import RayFlag
 from ohm_tpu_torch.oracle.ndt import NdtParams
 from ohm_tpu_torch.oracle.tsdf import TsdfOptions
+from ohm_tpu_torch.ops import probes_cuda
 from ohm_tpu_torch.ops.deposit_cuda import (
     deposit_and_sweep, deposit_and_sweep_ndt, deposit_and_sweep_ndt_reference,
     deposit_and_sweep_reference, tsdf_set_deposit, tsdf_set_deposit_reference)
@@ -30,7 +33,10 @@ from ohm_tpu_torch.ops.expand_cuda import expand_keys, expand_keys_reference
 from ohm_tpu_torch.ops.gather_cuda import (
     gather_plane, gather_plane_reference, gather_planes_f32, gather_planes_f32_reference)
 from ohm_tpu_torch.ops.integrate import expand_records
+from ohm_tpu_torch.ops.slotgrid_cuda import (part_bounds, scatter_deposit, slotgrid_deposit,
+                                             slotgrid_deposit_reference)
 from ohm_tpu_torch.ops.wire import unpack_batch
+from ohm_tpu_torch.scripts import probe_deposit as pd
 
 pytestmark = pytest.mark.cuda
 
@@ -362,3 +368,49 @@ def test_layers_mapper_on_card_matches_cpu(cuda):
     for member, same in codes.items():
         same = np.concatenate(same)
         assert same.size > 1000 and same.mean() >= 0.999, member
+
+
+@pytest.mark.parametrize("name", list(probes_cuda.PROBES))
+def test_probe_kernel_matches_plain(cuda, name):
+    args = probes_cuda.probe_inputs(cuda)[name]
+    out = probes_cuda.PROBES[name](*args)
+    ref = probes_cuda.PLAIN[name](*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert np.array_equal(out.cpu().numpy(), probes_cuda.expected_outputs()[name])
+
+
+def _probe_stream(name, device):
+    if name == "bench":
+        keys, occ, c = pd.make_stream(), pd.initial_occupancy()[:pd.C * pd.V], pd.C
+    else:
+        keys, occ, c = pd.edge_stream(name)
+    return torch.from_numpy(keys).to(device), torch.from_numpy(occ).to(device), c
+
+
+@pytest.mark.parametrize("fuse_sweep", [True, False], ids=["fused", "counts"])
+@pytest.mark.parametrize("name", ("bench",) + pd.EDGE_STREAMS)
+def test_slotgrid_kernel_matches_plain(cuda, name, fuse_sweep):
+    keys, occ, c = _probe_stream(name, cuda)
+    bounds = part_bounds(keys, c)
+    out = slotgrid_deposit(keys, occ.clone(), bounds, fuse_sweep=fuse_sweep, **pd.SWEEP)
+    ref = slotgrid_deposit_reference(keys, occ.clone(), bounds, fuse_sweep=fuse_sweep,
+                                     **pd.SWEEP)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    if name == "long_run":
+        assert float(out[977]) == (pd.LONG_RUN if not fuse_sweep else float(ref[977]))
+
+
+def test_slotgrid_and_k3_match_the_scatter_yardstick(cuda):
+    keys, _, c = _probe_stream("bench", cuda)
+    occ_flat = torch.from_numpy(pd.initial_occupancy()).to(cuda)
+    n_vox = c * pd.V
+    want = scatter_deposit(keys, occ_flat, c, **pd.SWEEP)[:n_vox]
+    grid = pd.deposit(keys, occ_flat.clone(), c)[:n_vox]
+    k3 = pd.k3_deposit(keys, occ_flat.clone(), pd.k3_config(c),
+                       torch.zeros(n_vox, dtype=torch.float32, device=cuda))[:n_vox]
+    torch.cuda.synchronize()
+    assert pd.largest_count(keys, c) < 65535
+    assert torch.equal(grid.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(k3.view(torch.int32), want.view(torch.int32))
