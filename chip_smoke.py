@@ -3,6 +3,8 @@
 and TSDF paths and the deposit probe once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
+    python3 chip_smoke.py --wrappers-of DIR   # only the wrapper_cost line, of
+                                              # the port in the checkout at DIR
 
 Phases, in order; each prints one JSON line, and any failure raises, so the
 exit code is not 0 and no result line is printed:
@@ -11,8 +13,14 @@ exit code is not 0 and no result line is printed:
   build        nvcc builds ohm_tpu_torch/csrc/*.cu for sm_90a (seconds, ptxas), and
                g++ the native rayflow host pass (ohm_tpu_torch/native)
   k1_expand    the expand kernel against its plain PyTorch version on wires
-               of the box, corner and miss scenes: keys and missed counts
-               bit-identical (tolerance 0)
+               of the box, corner and miss scenes and on edge rays (starts
+               on voxel walls, zero lengths, denormal direction components,
+               invalid rays, more than S crossings): keys, missed counts,
+               overflow flags and end enter times bit-identical (tolerance
+               0), on the card and against the plain version on the CPU;
+               the ATen ops its wrapper issues (its outputs' allocations
+               only), and which operand ATen's CUDA maximum and clamp
+               return for signed zeros and NaN
   k2_deposit   the deposit-and-sweep kernel against its plain version at the
                bench shape (512 slots x 32768 voxels, ~1.1M keys) under each
                exclude flag: occupancy bits and touched count identical
@@ -69,7 +77,21 @@ exit code is not 0 and no result line is printed:
                a dense plane, over an arena mixing +inf, free, occupied and
                saturated voxels: occupancy bits and touched count identical
   k4_gather    the plane-gather kernel against its plain version on a
-               sorted stream of ~1.5M ids with sentinel padding, identical
+               sorted stream of ~1.5M ids with sentinel padding, in whole
+               16-byte vectors and with a scalar tail: identical; ids off a
+               16-byte boundary refused; its time alone
+  wrapper_cost the K1 wrapper (keys, traversal, voxel planes), K4 beside
+               index_select, the flag plane's build + K4 and the fused flag
+               gather, each on fixed inputs (bench.py's first box batch; an
+               NDT-OM arena with 600,000 sorted ids): host us a call over
+               calls without a synchronize, CUDA-event ms a call, the kernel
+               alone, and the device time and operations of the whole call
+               (torch.profiler).  --wrappers-of DIR prints only this line,
+               for the port of another checkout on the same inputs
+  k4_ndt_flags the fused NDT flag gather (K4 reading occupancy and
+               mean_count) against its plain version (the arena-wide flag
+               plane, then K4's plain gather) at the NDT-OM arena, with +inf,
+               NaN and counts at or above 2^31, thresholds 3, 1, 0: identical
   ndt_hardware_differential
                TorchNdtMap on the card, NDT-OM and NDT-TM (with intensities),
                on tests/test_ndt.py's plane-then-through scene, against the
@@ -82,9 +104,14 @@ exit code is not 0 and no result line is printed:
                voxels, 1024-slot arena, 8192-ray batches, 40 timed after 6
                warm-up; host prep, device time, each kernel beside its plain
                version, the launch counts, and a profile line; before it
-               (the "ndt_om_kernel_checks" line) K1 with voxel planes, K4
-               and K3 on the arguments this path gave them in one batch,
-               each against its plain version bit for bit
+               (the "ndt_om_kernel_checks" line) K1 with voxel planes, the
+               fused flag gather (and K4 on the flag plane) and K3 on the
+               arguments this path gave them in one batch, each against its
+               plain version bit for bit; then (the "ndt_flag_gather" line)
+               the flag plane's build + K4, the build + index_select and the
+               fused kernel on those arguments in alternated turns, each
+               one's device time alone, and K4 against index_select; K4's
+               launches on the path are counted and must be 0
   ndt_tm_integrate_rays_per_sec
                the integrate part of config 5: one 1,048,576-ray box frame
                (half extents 15, 15, 7), intensities uniform in [0, 1),
@@ -142,9 +169,11 @@ module of ohm_tpu was imported.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import os
 import subprocess
@@ -173,6 +202,7 @@ from ohm_tpu_torch.ops import (_build, deposit_cuda, expand_cuda, gather_cuda, p
 from ohm_tpu_torch.ops.integrate import apply_records, apply_sample_layers, expand_records
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit
+from ohm_tpu_torch.testing import dispatched_ops, edge_rays, ndt_flag_arena
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -326,18 +356,26 @@ def finite_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def k1_bound(b: dict, cfg, with_vox: bool, with_trav: bool = False) -> dict:
-    """K1's bound: per ray 9 f32 and 10 + K i32 of input; per lane (3S a
-    ray) a 4-byte key, 12 bytes of voxel planes with ``with_vox`` and 4
-    bytes of traversal with ``with_trav``; ~90 + 4K operations a lane
-    (counted from csrc/expand.cu: the event time, two rank probes with their
-    binary advance, the packing and the K-way candidate match), and 24 more
-    with the traversal (three enter times, two compare-and-selects, the
-    subtraction and its validity select)."""
+    """K1's bound.  Bytes: per ray the unpacked batch's fields the kernel
+    reads, 7 f32 (start_frac, direction, length), 6 i32 (start_abs,
+    end_abs), two bool bytes (valid, exclude_start) and K i32 (tcand), and
+    its aux outputs, a u8 overflow flag and an f32 end enter time; gmeta's
+    three words and the missed count once; per lane (3S a ray) a 4-byte
+    key, 12 bytes of voxel planes with ``with_vox`` and 4 bytes of
+    traversal with ``with_trav``.  Operations (counted from csrc/expand.cu):
+    ~90 + 4K a lane (the event time, two rank probes with their binary
+    advance, the packing and the K-way candidate match), 24 more with the
+    traversal (three enter times, two compare-and-selects, the subtraction
+    and its validity select); and ~150 a ray for the set-up: per axis ~26
+    compares, selects, products and sums (init_walk, the crossings and
+    n_ax, the last event time, the overflow term) and two IEEE divisions
+    at ~10 each, then the enter time's two maxima and its clamp."""
     B, S, K = b["start_abs"].shape[0], cfg.max_steps, b["tcand"].shape[1]
     lanes = B * 3 * S
     per_lane = 4 + (12 if with_vox else 0) + (4 if with_trav else 0)
-    return bound(B * (19 + K) * 4 + 12 + lanes * per_lane + 4,
-                 lanes * (90 + 4 * K + (24 if with_trav else 0)))
+    per_ray = 7 * 4 + 6 * 4 + 2 + 4 * K + 1 + 4
+    return bound(B * per_ray + 12 + 4 + lanes * per_lane,
+                 lanes * (90 + 4 * K + (24 if with_trav else 0)) + 150 * B)
 
 
 def count_host_syncs(fn) -> dict:
@@ -368,19 +406,77 @@ def count_host_syncs(fn) -> dict:
     return {"count": sum(sites.values()), "sites": sites}
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 10) -> float:
-    """Device time per call of the CUDA kernels whose name holds ``kernel``
-    while ``fn`` runs (torch.profiler): the kernel alone, without its
-    wrapper's PyTorch prelude."""
+def device_profile(fn, kernel: str = "", reps: int = 10) -> dict:
+    """torch.profiler's device rows while ``fn`` runs: the mean device time
+    of one launch of the CUDA kernels whose name holds ``kernel`` (the
+    kernel alone, without its wrapper's host work; each call launches it
+    once), and per call the time of every device operation (kernels and
+    memsets: the device time of the whole call) and their count.  On the
+    H100 with torch 2.11 a short trace at times loses some or all of its
+    device rows (a count a call below the call's own shows it): the mean a
+    launch does not move with a partial loss, and a trace that saw no
+    launch of ``kernel`` (or no row at all) is taken again, up to three
+    times."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        named = [e for e in rows if kernel and kernel in e.key]
+        launches = sum(e.count for e in named)
+        if (launches if kernel else rows):
+            break
+    us = lambda es: sum(getattr(e, "self_device_time_total", 0) for e in es)
+    return {"kernel_ms": us(named) / 1e3 / launches if launches else 0.0,
+            "device_ms": us(rows) / 1e3 / reps,
+            "device_ops": sum(e.count for e in rows) / reps}
+
+
+def kernel_device_ms(fn, kernel: str = "", reps: int = 10) -> float:
+    """device_profile's kernel time for a named ``kernel``; with ``kernel``
+    empty, the device time of the whole call."""
+    prof = device_profile(fn, kernel, reps)
+    return prof["kernel_ms"] if kernel else prof["device_ms"]
+
+
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host time per call of ``fn`` over ``calls`` calls without a
+    synchronize (the wrapper's Python and launch cost; the device catches
+    up after the clock stops, as long as the launch queue does not fill)."""
+    fn()
+    torch.cuda.synchronize()
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if kernel in e.key)
-    return us / 1e3 / reps
+        seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def alternated_ms(fns: dict, turns: int = 6) -> dict:
+    """CUDA-event ms per call of each of ``fns`` in alternated turns (the
+    order reversed every other turn); the median and every turn's time."""
+    times = {name: [] for name in fns}
+    for t in range(turns):
+        for name in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+            times[name].append(cuda_ms(fns[name]))
+    return {name: {"median_ms": float(np.median(v)), "turns_ms": v} for name, v in times.items()}
+
+
+def aten_cuda_max_semantics() -> dict:
+    """Which operand ATen's CUDA maximum and clamp(min=0) return for signed
+    zeros and NaN, as f32 bit patterns (the expand kernel reproduces them
+    for the end voxel's enter time)."""
+    a = torch.tensor([-0.0, 0.0, float("nan"), 1.0], device="cuda")
+    b = torch.tensor([0.0, -0.0, 1.0, float("nan")], device="cuda")
+    hexes = lambda t: [f"{x:08x}" for x in t.view(torch.int32).cpu().numpy().view(np.uint32)]
+    return {"maximum(a, b)": hexes(torch.maximum(a, b)), "a": hexes(a), "b": hexes(b),
+            "clamp(a, min=0)": hexes(torch.clamp(a, min=0.0))}
 
 
 def phase_device() -> dict:
@@ -417,6 +513,16 @@ def _wire_batch(rays, flags=0):
     return unpack_batch(torch.from_numpy(wire).cuda(), cfg), cfg
 
 
+def refuses_misaligned(fn) -> bool:
+    """Whether ``fn`` raises the gather wrappers' ValueError for ids that do
+    not start on a 16-byte boundary (and launches nothing)."""
+    try:
+        fn()
+    except ValueError as e:
+        return "aligned" in str(e)
+    return False
+
+
 def phase_k1() -> dict:
     rng = np.random.default_rng(SEED)
     cases = []
@@ -424,6 +530,9 @@ def phase_k1() -> dict:
     cases.append(("box", box_b, box_cfg, 0))
     corner_b, corner_cfg = _wire_batch(corner_scene_rays(2048, rng))
     cases.append(("corner_exclude_origin", corner_b, corner_cfg, int(RayFlag.EXCLUDE_ORIGIN)))
+    edge_b, edge_cfg = _wire_batch(box_scene_rays(2048, rng))
+    edge_rays(edge_b, edge_cfg)
+    cases.append(("box_edge_rays", edge_b, edge_cfg, int(RayFlag.EXCLUDE_ORIGIN)))
     # Miss scene: drop the first candidate of every other ray, so records in
     # that region resolve to no slot and must be counted as missed.
     miss_b = dict(box_b)
@@ -433,22 +542,39 @@ def phase_k1() -> dict:
     rows = []
     for name, b, cfg, flags in cases:
         excl = bool(flags & RayFlag.EXCLUDE_ORIGIN)
-        key_k, aux = expand_cuda.expand_keys(b, cfg, exclude_origin=excl)
-        key_p, missed_p = expand_cuda.expand_keys_reference(b, cfg, exclude_origin=excl)
+        row = check_k1_call(((b, cfg), {"exclude_origin": excl}))
         b_cpu = {k: v.cpu() for k, v in b.items()}
         key_c, missed_c = expand_cuda.expand_keys_reference(b_cpu, cfg, exclude_origin=excl)
+        key_k, aux = expand_cuda.expand_keys(b, cfg, exclude_origin=excl)
+        aux_c = expand_cuda._prelude(b_cpu, cfg)[-1]
         torch.cuda.synchronize()
-        missed_k = int(aux["missed_n"])
-        err = int((key_k.long() - key_p.long()).abs().max())
-        ok = (torch.equal(key_k, key_p) and torch.equal(key_k.cpu(), key_c)
-              and missed_k == int(missed_p) == int(missed_c))
-        rows.append({"scene": name, "rays": int(b["valid"].sum()), "records": key_k.numel(),
-                     "missed": missed_k, "max_abs_err": err, "bit_identical": ok})
-        if not ok:
-            raise AssertionError(f"expand kernel differs from its plain version on {name}: {rows[-1]}")
+        # The card against the plain version on the CPU, on the rays whose
+        # set-up is finite: a denormal direction component makes NaN walk
+        # times, whose payload bits (which the walk compares as integers)
+        # differ between x86 and CUDA.
+        d = b_cpu["direction"]
+        ok_rays = ~((d != 0) & (d.abs() < torch.finfo(torch.float32).tiny)).any(dim=1)
+        row["equal_cpu"] = bool(
+            torch.equal(key_k.cpu()[ok_rays], key_c[ok_rays])
+            and (int(aux["missed_n"]) == int(missed_c) or not bool(ok_rays.all()))
+            and torch.equal(aux["overflow"].cpu(), aux_c["overflow"])
+            and same_bits(aux["end_enter"].cpu()[ok_rays], aux_c["end_enter"][ok_rays]))
+        row["rays_compared_cpu"] = int(ok_rays.sum())
+        row.update(scene=name, rays=int(b["valid"].sum()))
+        rows.append(row)
+        if not (row["bit_identical"] and row["equal_cpu"]):
+            raise AssertionError(f"expand kernel differs from its plain version on {name}: {row}")
     if rows[-1]["missed"] == 0:
         raise AssertionError("the miss scene made no record miss")
-    result = {"phase": "k1_expand", "tolerance": 0, "cases": rows}
+    edge = rows[2]
+    if not (edge["overflow_rays"] >= 8 and edge["nan_end_enter"] >= 4):
+        raise AssertionError(f"the edge rays did not reach their cases: {edge}")
+    ops = sorted(set(dispatched_ops(lambda: expand_cuda.expand_keys(
+        box_b, box_cfg, with_trav=True, with_vox=True))))
+    if not set(ops) <= {"empty", "empty_strided"}:
+        raise AssertionError(f"the expand wrapper issued PyTorch ops besides its outputs: {ops}")
+    result = {"phase": "k1_expand", "tolerance": 0, "cases": rows,
+              "wrapper_aten_ops": ops, "aten_cuda_max_semantics": aten_cuda_max_semantics()}
     emit(result)
     return {"max_abs_err": max(r["max_abs_err"] for r in rows), "wire": (box_b, box_cfg),
             "cases": cases}
@@ -596,11 +722,57 @@ def phase_k4() -> dict:
     torch.cuda.synchronize()
     err = int((out_k - out_p).abs().max())
     ok = torch.equal(out_k, out_p) and int(out_k[-150_000:].abs().sum()) == 0
+    # 16-byte vectors with a scalar tail (n % 4 == 3); ids that do not start
+    # on a 16-byte boundary are refused.
+    pk = gather_cuda.gather_plane(plane, ids[:-1], n_vox)
+    pp = gather_cuda.gather_plane_reference(plane, ids[:-1], n_vox)
+    torch.cuda.synchronize()
+    err = max(err, int((pk - pp).abs().max()))
+    ok = ok and torch.equal(pk, pp)
     row = {"ids": ids.numel(), "sentinel_ids": 150_000, "flagged": int(out_k.sum()),
-           "max_abs_err": err, "bit_identical": bool(ok)}
+           "max_abs_err": err, "bit_identical": bool(ok),
+           "misaligned_refused": refuses_misaligned(
+               lambda: gather_cuda.gather_plane(plane, ids[1:], n_vox)),
+           "kernel_alone_ms": kernel_device_ms(
+               lambda: gather_cuda.gather_plane(plane, ids, n_vox), "PlaneSource")}
     emit({"phase": "k4_gather", "tolerance": 0, **row})
-    if not ok:
+    if not (ok and row["misaligned_refused"]):
         raise AssertionError(f"gather kernel differs from its plain version: {row}")
+    return {"max_abs_err": err, "alone_ms": row["kernel_alone_ms"]}
+
+
+def phase_k4_flags() -> dict:
+    """The fused NDT flag gather against its plain version (the arena-wide
+    flag plane, then K4's plain gather) at the NDT-OM arena (1024 slots),
+    with +inf, NaN, counts on both sides of each threshold and at or above
+    2^31, a sentinel tail, whole vectors and a scalar tail; misaligned ids
+    refused."""
+    cfg = _ndt_config_at_bench_shape()
+    rng = np.random.default_rng(SEED)
+    n_vox = cfg.sentinel
+    occ, count = ndt_flag_arena(n_vox + 1, n_vox, rng, 100_000, 100_000)
+    occ, count = torch.from_numpy(occ).cuda(), torch.from_numpy(count.view(np.int32)).cuda()
+    ids = torch.from_numpy(_sorted_ids(rng, cfg, 600_000, 50_001)).cuda()
+    rows, ok, err = [], True, 0
+    for threshold in (3, 1, 0):
+        for part in (ids, ids[:-2], ids[4:-1]):
+            out_k = gather_cuda.gather_ndt_flags(occ, count, part, threshold, n_vox)
+            out_p = gather_cuda.gather_ndt_flags_reference(occ, count, part, threshold, n_vox)
+            torch.cuda.synchronize()
+            same = torch.equal(out_k, out_p)
+            err = max(err, int((out_k - out_p).abs().max()))
+            ok = ok and same and 0 < int(out_k.sum()) < part.numel() - 50_000
+        rows.append({"threshold": threshold, "flagged": int(out_k.sum()),
+                     "bit_identical": bool(same)})
+    real = ids[:600_000].long()
+    edge = int(((torch.isnan(occ[real]) | (count[real] < 0)) & ~torch.isposinf(occ[real])).sum())
+    refused = refuses_misaligned(
+        lambda: gather_cuda.gather_ndt_flags(occ, count, ids[3:], 3, n_vox))
+    emit({"phase": "k4_ndt_flags", "tolerance": 0, "ids": ids.numel(), "sentinel_ids": 50_001,
+          "nan_or_big_count_ids": edge, "cases": rows, "bit_identical": bool(ok),
+          "misaligned_refused": refused})
+    if not ok or edge == 0 or not refused:
+        raise AssertionError(f"fused flag gather differs from its plain version: {rows}")
     return {"max_abs_err": err}
 
 
@@ -917,6 +1089,8 @@ def phase_bench(k1: dict) -> dict:
     k1_plain, k1_kern = plain_vs_kernel_ms(
         lambda: expand_cuda.expand_keys_reference(b, cfg),
         lambda: expand_cuda.expand_keys(b, cfg))
+    # In the same call: the kernel alone.
+    k1_alone = kernel_device_ms(lambda: expand_cuda.expand_keys(b, cfg), "expand_keys_kernel")
     cfg0 = setups[0][1]
     records, _ = expand_records(unpack_batch(wires[0], cfg0), cfg0)
     key_s = torch.sort(records["key"]).values
@@ -940,12 +1114,13 @@ def phase_bench(k1: dict) -> dict:
           "wire_bytes_per_ray": setups[0][0].nbytes / RAYS_PER_BATCH,
           "kernel_ms": {"expand_keys": k1_kern, "deposit_and_sweep": k2_kern},
           "plain_ms": {"expand_keys": k1_plain, "deposit_and_sweep": k2_plain},
+          "kernel_alone_ms": {"expand_keys": k1_alone},
           "launches": launches,
           "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped")},
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
     return {"launches": launches, "ms": {"expand_keys": k1_kern, "deposit_and_sweep": k2_kern},
             "plain_ms": {"expand_keys": k1_plain, "deposit_and_sweep": k2_plain},
-            "bound": bounds}
+            "bound": bounds, "alone_ms": k1_alone}
 
 
 def phase_k1_trav(k1: dict) -> dict:
@@ -1338,10 +1513,14 @@ def phase_outdoor_mean_bench() -> dict:
 
 
 def _snapshot(x):
-    """A copy of a call's argument as it is now: tensors cloned, through
+    """A copy of a call's argument as it is now: tensors copied with their
+    strides (a row-strided view of the wire stays row-strided), through
     tuples and dicts (the NDT deposit updates the arena in place)."""
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+            return x.clone()
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                   device=x.device).copy_(x)
     if isinstance(x, (tuple, list)):
         return type(x)(_snapshot(v) for v in x)
     if isinstance(x, dict):
@@ -1381,10 +1560,13 @@ def phase_ndt_om_bench() -> dict:
     overflow_before = mapper.stats["ndt_overflow"]
     torch.cuda.synchronize()
 
-    # The NDT-OM path, counted: every count is 0 just before it.
+    # The NDT-OM path, counted: every count is 0 just before it.  K4's
+    # count too: the fused flag gather took its place on this path, so its
+    # count must stay 0.
     counters = {"expand_keys": expand_cuda.expand_keys,
-                "gather_plane": gather_cuda.gather_plane,
-                "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt}
+                "gather_ndt_flags": gather_cuda.gather_ndt_flags,
+                "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt,
+                "gather_plane": gather_cuda.gather_plane}
     for fn in counters.values():
         fn.launches = 0
     with without_gc_pauses():
@@ -1399,46 +1581,86 @@ def phase_ndt_om_bench() -> dict:
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
         if stats[name]:
             raise AssertionError(f"NDT-OM path reported {name}={stats[name]}")
-    if min(launches.values()) <= 0:
+    if min(n for name, n in launches.items() if name != "gather_plane") <= 0:
         raise AssertionError(f"a kernel of the NDT-OM path never launched: {launches}")
+    if launches["gather_plane"]:
+        raise AssertionError(f"the NDT-OM path built the flag plane and ran K4: {launches}")
 
     host_prep_ms, device_ms, wires, setups = device_and_host_ms(mapper, batches)
 
     # Each kernel beside its plain version on the arguments the path gave
     # it in one more batch.
     with first_call_args(expand_cuda, "expand_keys") as k1_args, \
-            first_call_args(gather_cuda, "gather_plane") as k4_args, \
+            first_call_args(gather_cuda, "gather_ndt_flags") as kf_args, \
             first_call_args(deposit_cuda, "deposit_and_sweep_ndt") as k3_args:
         mapper._dispatch(wires[0], setups[0][1], setups[0][2])
     torch.cuda.synchronize()
     (b, cfg0), kw = k1_args[0]
-    (plane, ids, sentinel), _ = k4_args[0]
+    (occ_f, count, ids, threshold, sentinel), _ = kf_args[0]
     (occ, walk, end, delta, dcfg), _ = k3_args[0]
-    errs = check_ndt_path_calls(k1_args[0], k4_args[0], k3_args[0])
+    errs = check_ndt_path_calls(k1_args[0], kf_args[0], k3_args[0])
     kernel_ms, plain_ms = {}, {}
     plain_ms["expand_keys"], kernel_ms["expand_keys"] = plain_vs_kernel_ms(
         lambda: expand_cuda.expand_keys_reference(b, cfg0, kw["exclude_origin"], with_vox=True),
         lambda: expand_cuda.expand_keys(b, cfg0, **kw))
+
+    # The flag gather three ways on the path's arguments, in one call: the
+    # arena-wide flag plane (the plain version's build) and K4, the same
+    # plane and index_select, and the fused kernel; each one's wrapper (CUDA
+    # events) and device time alone; K4 and the fused kernel beside their
+    # plain versions; K4 against index_select on a built plane, in
+    # alternated turns.  (Each wrapper's host cost: the wrapper_cost line.)
+    def build_plane():
+        return (~torch.isposinf(occ_f) & ((count >= threshold) | (count < 0))).to(torch.int8)
+
+    plane = build_plane()
+    flags = {
+        "plane_build_k4": lambda: gather_cuda.gather_plane(build_plane(), ids, sentinel),
+        "plane_build_index_select": lambda: torch.index_select(build_plane(), 0, ids),
+        "fused": lambda: gather_cuda.gather_ndt_flags(occ_f, count, ids, threshold, sentinel)}
+    # The ids on this path stop at the sentinel, whose plane byte is 0 (+inf
+    # occupancy), so index_select computes K4's values (as int8).
+    want = gather_cuda.gather_ndt_flags(occ_f, count, ids, threshold, sentinel)
+    if not all(same_bits(f().to(torch.int32), want) for f in flags.values()):
+        raise AssertionError("the three flag gathers disagree on the NDT-OM path's arguments")
+    flag_ms = alternated_ms(flags)
+    flag_alone = {name: kernel_device_ms(f) for name, f in flags.items()}
+    plain_ms["gather_ndt_flags"], kernel_ms["gather_ndt_flags"] = plain_vs_kernel_ms(
+        lambda: gather_cuda.gather_ndt_flags_reference(occ_f, count, ids, threshold, sentinel),
+        flags["fused"])
     plain_ms["gather_plane"], kernel_ms["gather_plane"] = plain_vs_kernel_ms(
         lambda: gather_cuda.gather_plane_reference(plane, ids, sentinel),
         lambda: gather_cuda.gather_plane(plane, ids, sentinel))
+    k4_vs_lib = alternated_ms({
+        "gather_plane": lambda: gather_cuda.gather_plane(plane, ids, sentinel),
+        "index_select": lambda: torch.index_select(plane, 0, ids)})
+    library_ms = {"gather_plane": k4_vs_lib["index_select"]["median_ms"],
+                  "gather_ndt_flags": None}
+    alone_ms = {"expand_keys": kernel_device_ms(lambda: expand_cuda.expand_keys(b, cfg0, **kw),
+                                                "expand_keys_kernel"),
+                "gather_plane": kernel_device_ms(
+                    lambda: gather_cuda.gather_plane(plane, ids, sentinel), "PlaneSource"),
+                "gather_ndt_flags": kernel_device_ms(flags["fused"], "NdtFlagSource"),
+                "index_select": kernel_device_ms(lambda: torch.index_select(plane, 0, ids))}
     occ_a, occ_b = occ.clone(), occ.clone()
     plain_ms["deposit_and_sweep_ndt"], kernel_ms["deposit_and_sweep_ndt"] = plain_vs_kernel_ms(
         lambda: deposit_cuda.deposit_and_sweep_ndt_reference(occ_a, walk, end, delta, dcfg),
         lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg))
-    # The ids on this path never pass the sentinel, whose plane byte is 0
-    # (+inf occupancy), so one index_select computes K4's values (as int8).
-    library_ms = {"gather_plane": None}
-    if same_bits(torch.index_select(plane, 0, ids).to(torch.int32),
-                 gather_cuda.gather_plane(plane, ids, sentinel)):
-        library_ms["gather_plane"] = cuda_ms(lambda: torch.index_select(plane, 0, ids))
     dk, dv = delta
     changed = distinct(torch.cat([walk >> 1, end >> 1, (dk >> 1)[dv != 0]]), dcfg.sentinel)
     n_keys = walk.numel() + end.numel() + dk.numel()
+    touched_ids = distinct(ids, sentinel)
     bounds = {"expand_keys": k1_bound(b, cfg0, with_vox=True),
-              "gather_plane": bound(8 * ids.numel() + distinct(ids, sentinel), 2 * ids.numel()),
+              "gather_plane": bound(8 * ids.numel() + touched_ids, 2 * ids.numel()),
+              # Per id: read it, write its flag; per distinct id: one word of
+              # occupancy and one of mean_count; ~6 operations an id.
+              "gather_ndt_flags": bound(8 * ids.numel() + 8 * touched_ids, 6 * ids.numel()),
               "deposit_and_sweep_ndt": bound(4 * (walk.numel() + end.numel()) + 8 * dk.numel()
                                              + 8 * changed + 4, 2 * n_keys + 18 * changed)}
+    flag_gather = {"ids": ids.numel(), "arena_voxels": occ_f.numel(), "threshold": threshold,
+                   "wrapper_ms": flag_ms, "device_ms_alone": flag_alone,
+                   "k4_vs_index_select": k4_vs_lib, "kernel_alone_ms": alone_ms}
+    emit({"phase": "ndt_flag_gather", **flag_gather})
     mapper._drain_stats()
 
     profile_main_path(mapper, batches[:8], path="ndt_om")
@@ -1448,31 +1670,41 @@ def phase_ndt_om_bench() -> dict:
           "resolution": NDT_RESOLUTION, "capacity": NDT_CAPACITY, "miss_k": mapper.miss_k,
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "walk_keys_per_batch": walk.numel(), "k_stream": delta[0].numel(),
-          "kernel_ms": kernel_ms, "plain_ms": plain_ms, "launches": launches,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms, "kernel_alone_ms": alone_ms,
+          "launches": launches,
           "timed_ndt_overflow": timed_overflow,
           "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped",
                                           "ndt_overflow", "ndt_flagged")},
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
-    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": errs,
-            "bound": bounds, "library_ms": library_ms}
+    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": errs, "bound": bounds, "library_ms": library_ms,
+            "alone_ms": alone_ms, "flag_gather": flag_gather}
 
 
 def check_k1_call(k1_call) -> dict:
     """K1 against its plain version on one recorded call, with the outputs
-    that call asked for: keys and missed count; the traversal on every
-    lane; the voxel planes on lanes whose key is not the sentinel.  Bit for
-    bit."""
+    that call asked for: keys and missed count, the overflow flags and the
+    end voxel's enter times (the plain prelude's, NaN and signed zeros
+    included); the traversal on every lane; the voxel planes on lanes whose
+    key is not the sentinel.  Bit for bit."""
     (b, cfg), kw = k1_call
     excl = kw.get("exclude_origin", False)
     with_vox, with_trav = kw.get("with_vox", False), kw.get("with_trav", False)
     key_k, aux = expand_cuda.expand_keys(b, cfg, **kw)
     ref = expand_cuda.expand_keys_reference(b, cfg, excl, with_vox=with_vox, with_trav=with_trav)
+    ref_aux = expand_cuda._prelude(b, cfg)[-1]
     key_p, missed_p = ref[0], ref[1]
     torch.cuda.synchronize()
     live = key_p != cfg.sentinel
     err = float((key_k.long() - key_p.long()).abs().max())
-    ok = torch.equal(key_k, key_p) and int(aux["missed_n"]) == int(missed_p)
-    row = {"lanes": key_k.numel(), "lanes_compared": int(live.sum()), "missed": int(missed_p)}
+    err = max(err, finite_err(aux["end_enter"], ref_aux["end_enter"]))
+    ok = (torch.equal(key_k, key_p) and int(aux["missed_n"]) == int(missed_p)
+          and aux["overflow"].dtype == torch.bool
+          and torch.equal(aux["overflow"], ref_aux["overflow"])
+          and same_bits(aux["end_enter"], ref_aux["end_enter"]))
+    row = {"lanes": key_k.numel(), "lanes_compared": int(live.sum()), "missed": int(missed_p),
+           "overflow_rays": int(ref_aux["overflow"].sum()),
+           "nan_end_enter": int(torch.isnan(ref_aux["end_enter"]).sum())}
     if with_vox:
         vk, vp = aux["vox"][live], ref[2][live]
         err = max(err, float((vk.long() - vp.long()).abs().max()) if vk.numel() else 0.0)
@@ -1485,19 +1717,24 @@ def check_k1_call(k1_call) -> dict:
     return {**row, "max_abs_err": err, "bit_identical": bool(ok)}
 
 
-def check_ndt_path_calls(k1_call, k4_call, k3_call) -> dict:
+def check_ndt_path_calls(k1_call, kf_call, k3_call) -> dict:
     """Each kernel against its plain version on the arguments the NDT-OM
-    path gave it (0.2 m voxels, 1024 slots, the intensity wire): K1's keys
-    and missed count, and its voxel planes on lanes whose key is not the
-    sentinel; K4's output; K3's occupancy bits and touched count, each run
-    on its own clone of the arena.  Bit for bit; raises on any difference."""
+    path gave it (0.2 m voxels, 1024 slots, the intensity wire): K1's keys,
+    missed count, overflow and end enter times, and its voxel planes on
+    lanes whose key is not the sentinel; the fused flag gather's output, and
+    K4 on the flag plane the plain version builds from the same arena; K3's
+    occupancy bits and touched count, each run on its own clone of the
+    arena.  Bit for bit; raises on any difference."""
     k1_row = check_k1_call(k1_call)
 
-    (plane, ids, sentinel), _ = k4_call
-    out_k = gather_cuda.gather_plane(plane, ids, sentinel)
-    out_p = gather_cuda.gather_plane_reference(plane, ids, sentinel)
-    k4_err = int((out_k - out_p).abs().max())
-    k4_ok = torch.equal(out_k, out_p)
+    (occ_f, count, ids, threshold, sentinel), _ = kf_call
+    out_k = gather_cuda.gather_ndt_flags(occ_f, count, ids, threshold, sentinel)
+    out_p = gather_cuda.gather_ndt_flags_reference(occ_f, count, ids, threshold, sentinel)
+    plane = (~torch.isposinf(occ_f) & ((count >= threshold) | (count < 0))).to(torch.int8)
+    out_4 = gather_cuda.gather_plane(plane, ids, sentinel)
+    kf_err = int((out_k - out_p).abs().max())
+    kf_ok = torch.equal(out_k, out_p) and int(out_k.sum()) > 0
+    k4_ok = torch.equal(out_4, out_p)
 
     (occ, walk, end, delta, dcfg), _ = k3_call
     occ_k, touched_k = deposit_cuda.deposit_and_sweep_ndt(occ.clone(), walk, end, delta, dcfg)
@@ -1511,14 +1748,17 @@ def check_ndt_path_calls(k1_call, k4_call, k3_call) -> dict:
              and int(touched_k) == int(touched_p) and changed > 0)
 
     row = {"expand_keys": k1_row,
-           "gather_plane": {"ids": ids.numel(), "flagged": int(out_k.sum()),
-                            "max_abs_err": k4_err, "bit_identical": bool(k4_ok)},
+           "gather_ndt_flags": {"ids": ids.numel(), "threshold": threshold,
+                                "flagged": int(out_k.sum()), "max_abs_err": kf_err,
+                                "bit_identical": bool(kf_ok)},
+           "gather_plane": {"ids": ids.numel(), "max_abs_err": int((out_4 - out_p).abs().max()),
+                            "bit_identical": bool(k4_ok)},
            "deposit_and_sweep_ndt": {"walk_keys": walk.numel(), "end_keys": end.numel(),
                                      "k_stream": delta[0].numel(), "touched": int(touched_k),
                                      "changed": changed, "max_abs_err": k3_err,
                                      "bit_identical": bool(k3_ok)}}
     emit({"phase": "ndt_om_kernel_checks", "tolerance": 0, **row})
-    if not (k1_row["bit_identical"] and k4_ok and k3_ok):
+    if not (k1_row["bit_identical"] and kf_ok and k4_ok and k3_ok):
         raise AssertionError(f"a kernel differs from its plain version on the NDT-OM path: {row}")
     return {name: r["max_abs_err"] for name, r in row.items()}
 
@@ -1758,6 +1998,8 @@ def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
     plain_ms["expand_keys"], kernel_ms["expand_keys"] = plain_vs_kernel_ms(
         lambda: expand_cuda.expand_keys_reference(b, cfg, kw["exclude_origin"], with_vox=True),
         lambda: expand_cuda.expand_keys(b, cfg, **kw))
+    k1_alone = kernel_device_ms(lambda: expand_cuda.expand_keys(b, cfg, **kw),
+                                "expand_keys_kernel")
     plain_ms["gather_planes_f32"], kernel_ms["gather_planes_f32"] = plain_vs_kernel_ms(
         lambda: gather_cuda.gather_planes_f32_reference(planes, ids, sentinel),
         lambda: gather_cuda.gather_planes_f32(planes, ids, sentinel))
@@ -1790,7 +2032,7 @@ def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
                                          2 * ids.numel()),
               "tsdf_set_deposit": bound(12 * dids.numel() + 8 * depositing, 2 * dids.numel())}
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound": bounds,
-            "records": ids.numel(), "depositing": depositing}
+            "records": ids.numel(), "depositing": depositing, "k1_alone_ms": k1_alone}
 
 
 def phase_tsdf_bench() -> dict:
@@ -1856,12 +2098,103 @@ def phase_tsdf_bench() -> dict:
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "records_per_batch": calls["records"], "depositing_per_batch": calls["depositing"],
           "kernel_ms": calls["ms"], "plain_ms": calls["plain_ms"],
+          "kernel_alone_ms": {"expand_keys": calls["k1_alone_ms"]},
           "library_ms": calls["library_ms"], "launches": launches,
           "observed_voxels": observed,
           "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped",
                                           "dropped_updates")},
           "max_memory_allocated_bytes": peak})
     return {**calls, "launches": launches, "max_abs_err": errs}
+
+
+WRAPPER_CALLS = 1000
+
+
+def call_cost(fn, kernel: str, calls: int) -> dict:
+    """One wrapper call's cost: host us a call over ``calls`` calls without
+    a synchronize, CUDA-event ms a call over 20 back-to-back calls, and
+    device_profile's kernel-alone ms (the whole call's device ms with
+    ``kernel`` empty), device ms and device operations a call."""
+    prof = device_profile(fn, kernel)
+    return {"host_us_per_call": host_us_per_call(fn, calls), "wrapper_ms": cuda_ms(fn),
+            "kernel_alone_ms": prof["kernel_ms"] if kernel else prof["device_ms"],
+            "device_ms_per_call": prof["device_ms"],
+            "device_ops_per_call": prof["device_ops"]}
+
+
+def wrapper_inputs() -> dict:
+    """The wrapper_cost phase's inputs, built by this checkout without a
+    kernel launch: bench.py's first box batch decoded on the card (8192
+    rays, seed 2024, 0.1 m voxels, 512 slots), and an NDT-OM arena (0.2 m,
+    1024 slots; +inf, NaN and counts at or above 2^31) with 600,000 sorted
+    ids over 320 live slots and 40,000 sentinels."""
+    rng = np.random.default_rng(SEED)
+    b, cfg = _wire_batch(box_scene_rays(RAYS_PER_BATCH, rng))
+    ncfg = _ndt_config_at_bench_shape()
+    n = ncfg.sentinel
+    occ, count = ndt_flag_arena(n + 1, n, rng, 10_000, 10_000)
+    ids = _sorted_ids(rng, ncfg, 600_000, 40_000)
+    occ, count, ids = (torch.from_numpy(x).cuda() for x in (occ, count.view(np.int32), ids))
+    return {"b": b, "cfg": cfg, "occ": occ, "count": count, "ids": ids, "sentinel": n,
+            "threshold": 3}
+
+
+def phase_wrapper_cost(expand_mod, gather_mod, inputs: dict, root: str) -> dict:
+    """call_cost of the K1 and K4 wrappers of ``expand_mod`` and
+    ``gather_mod`` (this checkout's, or another's under --wrappers-of) on
+    ``inputs``: K1 with keys, traversal and voxel planes (WRAPPER_CALLS / 5
+    calls for the host time, so that their device work does not fill the
+    launch queue); K4 on the built flag plane beside index_select; the
+    plane build + K4 (WRAPPER_CALLS / 10); and the fused flag gather where
+    the module has one."""
+    b, cfg = inputs["b"], inputs["cfg"]
+    occ, count, ids = inputs["occ"], inputs["count"], inputs["ids"]
+    n, thr = inputs["sentinel"], inputs["threshold"]
+    out = {}
+    for name, kw in (("keys", {}), ("traversal", {"with_trav": True}),
+                     ("voxel_planes", {"with_vox": True})):
+        out[f"expand_keys_{name}"] = call_cost(
+            lambda: expand_mod.expand_keys(b, cfg, **kw), "expand_keys_kernel",
+            WRAPPER_CALLS // 5)
+
+    def build_plane():
+        return (~torch.isposinf(occ) & ((count >= thr) | (count < 0))).to(torch.int8)
+
+    plane = build_plane()
+    out["gather_plane"] = call_cost(lambda: gather_mod.gather_plane(plane, ids, n), "gather",
+                                    WRAPPER_CALLS)
+    # index_select issues one device operation, whatever its kernel's name.
+    out["index_select"] = call_cost(lambda: torch.index_select(plane, 0, ids), "",
+                                    WRAPPER_CALLS)
+    out["plane_build_k4"] = call_cost(lambda: gather_mod.gather_plane(build_plane(), ids, n),
+                                      "gather", WRAPPER_CALLS // 10)
+    if hasattr(gather_mod, "gather_ndt_flags"):
+        out["gather_ndt_flags"] = call_cost(
+            lambda: gather_mod.gather_ndt_flags(occ, count, ids, thr, n), "gather",
+            WRAPPER_CALLS)
+    emit({"phase": "wrapper_cost", "root": os.path.abspath(root),
+          "package": os.path.dirname(os.path.dirname(os.path.abspath(expand_mod.__file__))),
+          **out})
+    return out
+
+
+def wrappers_of(root: str) -> int:
+    """``--wrappers-of DIR``: the wrapper_cost line of the port in the
+    checkout at DIR (an older commit unpacked with ``git archive``, or this
+    one), on inputs this checkout builds, so that one harness times two
+    commits' wrappers in one call.  DIR's kernels are built in DIR."""
+    inputs = wrapper_inputs()
+    torch.cuda.synchronize()
+    for name in [m for m in sys.modules if m == "ohm_tpu_torch" or m.startswith("ohm_tpu_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.abspath(root))
+    expand_mod = importlib.import_module("ohm_tpu_torch.ops.expand_cuda")
+    gather_mod = importlib.import_module("ohm_tpu_torch.ops.gather_cuda")
+    if not expand_mod.__file__.startswith(os.path.abspath(root)):
+        raise AssertionError(f"imported {expand_mod.__file__}, not the port under {root}")
+    importlib.import_module("ohm_tpu_torch.ops._build").load()
+    phase_wrapper_cost(expand_mod, gather_mod, inputs, root)
+    return 0
 
 
 def probe_work() -> dict:
@@ -2048,12 +2381,18 @@ def phase_p() -> dict:
             "times": times}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wrappers-of", metavar="DIR",
+                    help="print only the wrapper_cost line of the port in the checkout at DIR")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU",
               file=sys.stderr)
         return 1
     info = phase_device()
+    if args.wrappers_of:
+        return wrappers_of(args.wrappers_of)
     phase_build()
     # The occupancy path first: the NDT kernel checks allocate arena-sized
     # host and device buffers, and ahead of its timed run they slowed it.
@@ -2068,6 +2407,8 @@ def main() -> int:
     k1_vox = phase_k1_vox(k1)
     k3 = phase_k3()
     k4 = phase_k4()
+    wrappers = phase_wrapper_cost(expand_cuda, gather_cuda, wrapper_inputs(), REPO)
+    k4_flags = phase_k4_flags()
     phase_ndt_hardware_differential()
     ndt = phase_ndt_om_bench()
     phase_ndt_tm_frame()
@@ -2108,7 +2449,13 @@ def main() -> int:
             with_trav_kernel_alone_ms=layers["alone_ms"],
             with_vox_ms=tsdf["ms"]["expand_keys"],
             with_vox_plain_ms=tsdf["plain_ms"]["expand_keys"],
-            with_vox_bound_ms=tsdf["bound"]["expand_keys"]["bound_ms"]),
+            with_vox_bound_ms=tsdf["bound"]["expand_keys"]["bound_ms"],
+            kernel_alone_ms=bench["alone_ms"],
+            host_us_per_call=wrappers["expand_keys_keys"]["host_us_per_call"],
+            wrapper_cost={k: wrappers[f"expand_keys_{k}"]
+                          for k in ("keys", "traversal", "voxel_planes")},
+            with_vox_kernel_alone_ms=tsdf["k1_alone_ms"],
+            ndt_om_with_vox_kernel_alone_ms=ndt["alone_ms"]["expand_keys"]),
         row("deposit_and_sweep", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:439", bench,
             max(k2["max_abs_err"], layers["max_abs_err"]["deposit_and_sweep"],
                 outdoor["max_abs_err"]["deposit_and_sweep"]),
@@ -2116,8 +2463,26 @@ def main() -> int:
             outdoor_mean_launches=outdoor["launches"]["deposit_and_sweep"]),
         row("deposit_and_sweep_ndt", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:449", ndt,
             max(k3["max_abs_err"], ndt["max_abs_err"]["deposit_and_sweep_ndt"])),
+        # K4 on the NDT-OM path's arguments (the flag plane built from the
+        # arena it captured); no mapper path launches it since the fused
+        # flag gather below took its place.
         row("gather_plane", "gather.cu", "ohm_tpu/ops/deposit_pallas.py:479", ndt,
-            max(k4["max_abs_err"], ndt["max_abs_err"]["gather_plane"])),
+            max(k4["max_abs_err"], ndt["max_abs_err"]["gather_plane"]),
+            on_path="none: the NDT-OM path runs gather_ndt_flags",
+            kernel_alone_ms=ndt["alone_ms"]["gather_plane"],
+            host_us_per_call=wrappers["gather_plane"]["host_us_per_call"],
+            index_select_host_us_per_call=wrappers["index_select"]["host_us_per_call"],
+            index_select_alone_ms=ndt["alone_ms"]["index_select"],
+            k4_vs_index_select=ndt["flag_gather"]["k4_vs_index_select"],
+            synthetic_kernel_alone_ms=k4["alone_ms"]),
+        row("gather_ndt_flags", "gather.cu",
+            "ohm_tpu/ops/integrate_ndt.py:195 + ohm_tpu/ops/deposit_pallas.py:479", ndt,
+            max(k4_flags["max_abs_err"], ndt["max_abs_err"]["gather_ndt_flags"]),
+            kernel_alone_ms=ndt["alone_ms"]["gather_ndt_flags"],
+            host_us_per_call=wrappers["gather_ndt_flags"]["host_us_per_call"],
+            plane_build_k4_host_us_per_call=wrappers["plane_build_k4"]["host_us_per_call"],
+            flag_gathers_ms=ndt["flag_gather"]["wrapper_ms"],
+            flag_gathers_device_ms_alone=ndt["flag_gather"]["device_ms_alone"]),
         row("gather_planes_f32", "gather.cu", "ohm_tpu/ops/deposit_pallas.py:598", tsdf,
             max(k5["max_abs_err"], tsdf["max_abs_err"]["gather_planes_f32"])),
         row("tsdf_set_deposit", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:726", tsdf,

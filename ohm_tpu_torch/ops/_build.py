@@ -38,9 +38,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu (extern "C"); every entry returns a cudaError_t.
 _SIGNATURES = {
-    # fray, iray, gmeta, key, trav (or null), vox (or null), missed, B, S,
-    # K, shift, v, sentinel, exclude_origin, stream
-    "ohm_expand_keys": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # start_frac, its row stride, direction, its row stride, length, its
+    # stride, start_abs, end_abs, valid, exclude_start, tcand, gmeta,
+    # resolution, key, trav (or null), vox (or null), missed, overflow,
+    # end_enter, B, S, K, shift, v, sentinel, exclude_origin, stream
+    "ohm_expand_keys": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F,
+                        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # occupancy, keys, n_keys, hit, miss, n_vox, flags, hit_value,
     # miss_value, threshold, min_value, max_value, saturation_min,
     # saturation_max, touched, stream
@@ -53,6 +56,8 @@ _SIGNATURES = {
                                   _F, _F, _F, _F, _F, _F, _P, _P],
     # plane, ids, n, sentinel, out, stream
     "ohm_gather_plane": [_P, _P, _I, _I, _P, _P],
+    # occupancy, mean_count, ids, n, threshold, sentinel, out, stream
+    "ohm_gather_ndt_flags": [_P, _P, _P, _I, _I, _I, _P, _P],
     # plane0, plane1, ids, n, sentinel, out0, out1, stream
     "ohm_gather_planes_f32": [_P, _P, _P, _I, _I, _P, _P, _P],
     # weight plane, distance plane, ids, w, d, n, sentinel, stream
@@ -69,6 +74,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_entries = {}
 
 
 def sources() -> list[str]:
@@ -136,6 +142,14 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def entry(name: str):
+    """The C entry point ``name`` of the kernel library, looked up once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(load(), name)
+    return fn
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if rc != 0:
@@ -144,5 +158,6 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of PyTorch's current stream on ``t``'s device (the raw
+    handle, without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -8,8 +8,10 @@ ops.integrate.resolve_slots + the validity and EXCLUDE_ORIGIN masking).
 ``expand_keys`` runs the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; it never swaps one for the other.
 The per-ray prelude (walk set-up, ``inv = dd > 0 ? 1/dd : 0``, the overflow
-flag and the end voxel's enter time) is PyTorch on either device, as the
-reference computes it in XLA before its kernel.
+flag and the end voxel's enter time), which the reference computes in XLA
+before its kernel, is ``_prelude`` on the CPU and runs inside the kernel on
+the card: the kernel reads the unpacked batch's own tensors, and the CUDA
+branch issues no PyTorch op but its outputs' allocations.
 """
 
 from __future__ import annotations
@@ -74,6 +76,31 @@ def expand_keys_reference(b: dict, cfg: IntegrateConfig, exclude_origin: bool = 
     return out
 
 
+def _kernel_batch_ok(b: dict, B: int, K: int) -> bool:
+    """The batch tensors the kernel reads, as ops.wire.unpack_batch gives
+    them, on one device: start_frac, direction f32[B,3] and length f32[B]
+    with any row stride (each row's axes contiguous); start_abs, end_abs
+    i32[B,3], valid, exclude_start bool[B], tcand i32[B,K] and gmeta i32[>=3]
+    contiguous."""
+    sf, dirn, length = b["start_frac"], b["direction"], b["length"]
+    sa, ea, valid, excl = b["start_abs"], b["end_abs"], b["valid"], b["exclude_start"]
+    tcand, gmeta = b["tcand"], b["gmeta"]
+    f32, i32, dev = torch.float32, torch.int32, sa.get_device()
+    return (sf.dtype is f32 and dirn.dtype is f32 and length.dtype is f32
+            and sf.shape == (B, 3) and dirn.shape == (B, 3) and length.shape == (B,)
+            and sf.stride(1) == 1 and dirn.stride(1) == 1
+            and sa.dtype is i32 and ea.dtype is i32 and sa.shape == (B, 3) == ea.shape
+            and sa.is_contiguous() and ea.is_contiguous()
+            and valid.dtype is torch.bool and excl.dtype is torch.bool
+            and valid.shape == (B,) == excl.shape
+            and valid.is_contiguous() and excl.is_contiguous()
+            and tcand.dtype is i32 and tcand.shape == (B, K) and tcand.is_contiguous()
+            and gmeta.dtype is i32 and gmeta.dim() == 1 and gmeta.shape[0] >= 3
+            and gmeta.is_contiguous()
+            and dev >= 0 and all(t.get_device() == dev for t in (
+                sf, dirn, length, ea, valid, excl, tcand, gmeta)))
+
+
 def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
                 with_trav: bool = False, with_vox: bool = False):
     """Walk + resolve an unpacked rayflow batch (ops.wire.unpack_batch).
@@ -85,9 +112,9 @@ def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
     every lane whose key is not the sentinel, and is unspecified elsewhere.
     ``with_trav`` adds aux["trav"] f32[B,3S], each record's traversal
     length, bit for bit the plain version's on every lane."""
-    e0, dd, inv, step_dir, n_ax, aux = _prelude(b, cfg)
     start_abs = b["start_abs"]
     if start_abs.device.type == "cpu":
+        aux = _prelude(b, cfg)[-1]
         out = list(expand_keys_reference(b, cfg, exclude_origin, with_vox=with_vox,
                                          with_trav=with_trav))
         if with_trav:
@@ -100,29 +127,35 @@ def expand_keys(b: dict, cfg: IntegrateConfig, exclude_origin: bool = False,
     B, S, K = start_abs.shape[0], cfg.max_steps, b["tcand"].shape[1]
     if K > MAX_K:
         raise ValueError(f"candidate table K={K} exceeds the kernel's {MAX_K}")
-    fray = torch.cat([e0, dd, inv], dim=1).to(torch.float32).contiguous()
-    iray = torch.cat([start_abs, step_dir, n_ax, b["tcand"],
-                      b["exclude_start"].to(torch.int32)[:, None]],
-                     dim=1).to(torch.int32).contiguous()
-    gmeta = b["gmeta"][0:3].to(torch.int32).contiguous()
-    key = torch.empty((B, 3 * S), dtype=torch.int32, device=start_abs.device)
-    trav = (torch.empty((B, 3 * S), dtype=torch.float32, device=start_abs.device)
-            if with_trav else None)
-    vox = (torch.empty((3, B, 3 * S), dtype=torch.int32, device=start_abs.device)
+    if not _kernel_batch_ok(b, B, K):
+        raise ValueError("expand_keys takes an unpacked rayflow batch (ops.wire.unpack_batch) "
+                         "on one CUDA device")
+    dev, W = start_abs.device, 3 * S
+    key = torch.empty((B, W), dtype=torch.int32, device=dev)
+    missed = torch.empty((), dtype=torch.int32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    end_enter = torch.empty(B, dtype=torch.float32, device=dev)
+    trav = torch.empty((B, W), dtype=torch.float32, device=dev) if with_trav else None
+    # [B, 3S, 3] over three planes [3][B][3S]: each axis's plane contiguous.
+    vox = (torch.empty_strided((B, W, 3), (W, 1, B * W), dtype=torch.int32, device=dev)
            if with_vox else None)
-    missed = torch.zeros(1, dtype=torch.int32, device=start_abs.device)
-    rc = _build.load().ohm_expand_keys(
-        fray.data_ptr(), iray.data_ptr(), gmeta.data_ptr(), key.data_ptr(),
-        trav.data_ptr() if with_trav else None, vox.data_ptr() if with_vox else None,
-        missed.data_ptr(), B, S, K, cfg.region_shift, cfg.voxels_per_region,
+    sf, dirn, length = b["start_frac"], b["direction"], b["length"]
+    rc = _build.entry("ohm_expand_keys")(
+        sf.data_ptr(), sf.stride(0), dirn.data_ptr(), dirn.stride(0), length.data_ptr(),
+        length.stride(0), start_abs.data_ptr(), b["end_abs"].data_ptr(), b["valid"].data_ptr(),
+        b["exclude_start"].data_ptr(), b["tcand"].data_ptr(), b["gmeta"].data_ptr(),
+        cfg.resolution, key.data_ptr(), trav.data_ptr() if with_trav else None,
+        vox.data_ptr() if with_vox else None, missed.data_ptr(), overflow.data_ptr(),
+        end_enter.data_ptr(), B, S, K, cfg.region_shift, cfg.voxels_per_region,
         cfg.sentinel, int(exclude_origin), _build.stream_of(key))
-    _build.check(rc, "expand_keys")
+    if rc:
+        _build.check(rc, "expand_keys")
     expand_keys.launches += 1
-    aux["missed_n"] = missed[0]
+    aux = {"missed_n": missed, "overflow": overflow, "end_enter": end_enter}
     if with_trav:
         aux["trav"] = trav
     if with_vox:
-        aux["vox"] = vox.permute(1, 2, 0)  # [B, 3S, 3] view of the planes
+        aux["vox"] = vox
     return key, aux
 
 

@@ -6,9 +6,11 @@ with its expand and deposit kernels):
 
   expand     K1 with voxel planes (ops.expand_cuda); end records; group
              compaction carrying each record's position as a payload
-  miss phase one stable sort of the compacted ids; K4 (ops.gather_cuda)
-             gathers the Gaussian flag plane; the first ``miss_k`` flagged
-             records in sorted-stream order run the NDT miss math, the rest
+  miss phase one stable sort of the compacted ids; the fused flag gather
+             (ops.gather_cuda.gather_ndt_flags, K4's kernel reading occupancy
+             and mean_count) flags the Gaussian records; the first
+             ``miss_k`` flagged records in sorted-stream order run the NDT
+             miss math, the rest
              of the flagged ones fall back to standard misses (counted in
              ``ndt_overflow``); per-voxel delta sums over the K stream
   hit phase  a stable sort on (voxel << 16 | ray_order) and the closed-form
@@ -67,14 +69,14 @@ def _miss_phase(arena: dict, b: dict, ids_c, pos_c, walk_vox, S: int, cfg: NdtCo
     K = min(cfg.miss_k, M)
     sids, order = torch.sort(ids_c, stable=True)
     spos = pos_c[order]
-    mc = arena["mean_count"]  # u32 as int32: negative means >= 2^31
-    gauss8 = (~torch.isposinf(arena["occupancy"])
-              & ((mc >= cfg.sample_threshold) | (mc < 0))).to(torch.int8)
-    is_ndt = gather_cuda.gather_plane(gauss8, sids, sentinel) > 0
+    # The Gaussian flag (observed, mean_count >= sample_threshold) at each
+    # sorted id, read from the arena's layers: no arena-wide flag plane.
+    flag = gather_cuda.gather_ndt_flags(arena["occupancy"], arena["mean_count"], sids,
+                                        cfg.sample_threshold, sentinel)
+    is_ndt = flag > 0
 
     # Flagged records first, then the rest, each in sorted-stream order: a
     # rank from a cumsum and one write per record into a permutation.
-    flag = is_ndt.to(torch.int32)
     rank_f = cumsum(flag) - flag
     n_flag = flag.sum()
     seq = torch.arange(M, dtype=torch.int32, device=ids_c.device)

@@ -6,7 +6,12 @@ arena of 32^3 regions; the f32 gather and the TSDF pair deposit bit for
 bit over -0.0, infinities and NaN payloads; the expand kernel's traversal
 output bit for bit on every lane; the five deposit probes and the slot-grid
 deposit (on the probe's bench-shaped stream and its edge streams) bit for
-bit, the slot-grid deposit and K3 equal to the scatter yardstick.  TorchNdtMap, TorchTsdfMap and
+bit, the slot-grid deposit and K3 equal to the scatter yardstick; the
+expand kernel's in-kernel prelude (overflow, the end voxel's enter time)
+against the plain prelude on every wire layout and on edge rays; the fused
+NDT flag gather against its plain version at the NDT-OM arena; and the
+K1 and K4 wrappers issuing no PyTorch op but their outputs' allocations.
+TorchNdtMap, TorchTsdfMap and
 TorchRayMapper with the side layers on the card must agree with themselves
 on the CPU and give the same bits on every run.
 
@@ -29,14 +34,17 @@ from ohm_tpu_torch.ops import probes_cuda
 from ohm_tpu_torch.ops.deposit_cuda import (
     deposit_and_sweep, deposit_and_sweep_ndt, deposit_and_sweep_ndt_reference,
     deposit_and_sweep_reference, tsdf_set_deposit, tsdf_set_deposit_reference)
-from ohm_tpu_torch.ops.expand_cuda import expand_keys, expand_keys_reference
+from ohm_tpu_torch.mapping.batch import frac_dict_of, prepare_rayflow, rayflow_wire
+from ohm_tpu_torch.ops.expand_cuda import _prelude, expand_keys, expand_keys_reference
 from ohm_tpu_torch.ops.gather_cuda import (
-    gather_plane, gather_plane_reference, gather_planes_f32, gather_planes_f32_reference)
+    gather_ndt_flags, gather_ndt_flags_reference, gather_plane, gather_plane_reference,
+    gather_planes_f32, gather_planes_f32_reference)
 from ohm_tpu_torch.ops.integrate import expand_records
 from ohm_tpu_torch.ops.slotgrid_cuda import (part_bounds, scatter_deposit, slotgrid_deposit,
                                              slotgrid_deposit_reference)
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit as pd
+from ohm_tpu_torch.testing import dispatched_ops, edge_rays, ndt_flag_arena
 
 pytestmark = pytest.mark.cuda
 
@@ -171,10 +179,54 @@ def test_gather_kernel_matches_plain(bench_batch):
     ids = np.concatenate([np.sort(rng.integers(0, cfg.sentinel, 1_000_000)),
                           np.full(50_000, cfg.sentinel)]).astype(np.int32)
     ids = torch.from_numpy(ids).to(dev)
-    out = gather_plane(plane, ids, cfg.sentinel)
-    ref = gather_plane_reference(plane, ids, cfg.sentinel)
-    torch.cuda.synchronize()
-    assert torch.equal(out, ref) and int(out.sum()) > 0
+    # 16-byte vectors, and with a scalar tail (n % 4 == 3); ids that do not
+    # start on a 16-byte boundary are refused.
+    for part in (ids, ids[:-1]):
+        out = gather_plane(plane, part, cfg.sentinel)
+        ref = gather_plane_reference(plane, part, cfg.sentinel)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref) and int(out.sum()) > 0
+    with pytest.raises(ValueError, match="aligned"):
+        gather_plane(plane, ids[1:], cfg.sentinel)
+
+
+@pytest.mark.parametrize("threshold", [3, 1, 0])
+def test_ndt_flag_gather_matches_plain(cuda, threshold):
+    cfg = TorchNdtMap(OccupancyMap(resolution=0.2, flags=MapFlag.NONE), capacity=1024,
+                      device=cuda)._config(0)
+    rng = np.random.default_rng(30 + threshold)
+    occ, count = ndt_flag_arena(cfg.sentinel + 1, cfg.sentinel, rng, 50_000, 50_000)
+    occ, count = torch.from_numpy(occ).to(cuda), torch.from_numpy(count.view(np.int32)).to(cuda)
+    ids = np.concatenate([np.sort(rng.integers(0, cfg.sentinel, 600_000)),
+                          np.full(40_001, cfg.sentinel)]).astype(np.int32)
+    ids = torch.from_numpy(ids).to(cuda)
+    for part in (ids, ids[:-2], ids[4:-1]):
+        out = gather_ndt_flags(occ, count, part, threshold, cfg.sentinel)
+        ref = gather_ndt_flags_reference(occ, count, part, threshold, cfg.sentinel)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert 0 < int(out.sum()) < part.numel() - 40_000
+    with pytest.raises(ValueError, match="aligned"):
+        gather_ndt_flags(occ, count, ids[3:], threshold, cfg.sentinel)
+    out = gather_ndt_flags(occ, count, ids, threshold, cfg.sentinel)
+    real = ids[:600_000].long()
+    nan_or_big = (torch.isnan(occ[real]) & (count[real] >= threshold)) | (
+        (count[real] < 0) & ~torch.isposinf(occ[real]))
+    assert int(nan_or_big.sum()) > 200 and bool((out[:600_000][nan_or_big] == 1).all())
+
+
+def test_k1_and_k4_wrappers_issue_only_their_allocations(bench_batch):
+    _, b, cfg = bench_batch
+    ops = dispatched_ops(lambda: expand_keys(b, cfg, with_trav=True, with_vox=True))
+    assert ops and set(ops) <= {"empty", "empty_strided"}, ops
+    ids = torch.sort(expand_keys(b, cfg)[0].reshape(-1)).values
+    occ = torch.full((cfg.sentinel + 1,), float("inf"), device=ids.device)
+    count = torch.zeros(cfg.sentinel + 1, dtype=torch.int32, device=ids.device)
+    plane = torch.zeros(cfg.sentinel + 1, dtype=torch.int8, device=ids.device)
+    for fn in (lambda: gather_ndt_flags(occ, count, ids, 3, cfg.sentinel),
+               lambda: gather_plane(plane, ids, cfg.sentinel)):
+        ops = dispatched_ops(fn)
+        assert ops and set(ops) <= {"empty_like", "empty", "empty_strided"}, ops
 
 
 def _ndt_run(device, tm, rng_seed=6):
@@ -414,3 +466,54 @@ def test_slotgrid_and_k3_match_the_scatter_yardstick(cuda):
     assert pd.largest_count(keys, c) < 65535
     assert torch.equal(grid.view(torch.int32), want.view(torch.int32))
     assert torch.equal(k3.view(torch.int32), want.view(torch.int32))
+
+
+def _k1_batch(device, cdict: int, fdict: bool):
+    """A 2048-ray box scan's wire with the given candidate dictionary and
+    start-frac dictionary, decoded on ``device``; edge rays in its first 48
+    rows (starts on voxel walls, zero lengths, a denormal direction component
+    on an axis the ray crosses once, which makes its enter time NaN, invalid
+    rays, more than S crossings)."""
+    mapper = TorchRayMapper(OccupancyMap(resolution=0.1, flags=MapFlag.NONE), capacity=512,
+                            device=device)
+    rf = prepare_rayflow(mapper.map, _box_rays(2048, np.random.default_rng(40 + cdict),
+                                               half=(6.0, 6.0, 3.0)))
+    mapper.arena.ensure_regions(rf.region_keys, host_map=mapper.map)
+    assert len(rf.region_keys) <= 255  # every dictionary can hold the candidates
+    fd = frac_dict_of(rf) if fdict else None
+    assert (fd is not None) == fdict
+    wire = rayflow_wire(rf, mapper.arena.table, with_touch=False, with_intensity=False,
+                        cdict=cdict, fdict=fd)
+    cfg = mapper._config(0, max_steps=-(-(rf.max_axis_steps + 1) // 32) * 32,
+                         table_k=rf.table_k, rayw_cdict=cdict, rayw_fdict=fdict)
+    b = unpack_batch(torch.from_numpy(wire).to(device), cfg)
+    edge_rays(b, cfg)
+    return b, cfg
+
+
+@pytest.mark.parametrize("fdict", [True, False], ids=["fdict", "floats"])
+@pytest.mark.parametrize("cdict", [0, 1, 2])
+def test_expand_kernel_prelude_matches_plain(cuda, cdict, fdict):
+    b, cfg = _k1_batch(cuda, cdict, fdict)
+    assert (b["direction"].stride(0), b["length"].stride(0)) == ((4, 4) if fdict else (7, 7))
+    for kw in ({"exclude_origin": False}, {"exclude_origin": True, "with_trav": True},
+               {"exclude_origin": False, "with_trav": True, "with_vox": True}):
+        key, aux = expand_keys(b, cfg, **kw)
+        ref = expand_keys_reference(b, cfg, kw["exclude_origin"], with_vox=kw.get("with_vox", False),
+                                    with_trav=kw.get("with_trav", False))
+        ref_aux = _prelude(b, cfg)[-1]
+        torch.cuda.synchronize()
+        assert torch.equal(key, ref[0]) and int(aux["missed_n"]) == int(ref[1])
+        assert aux["overflow"].dtype == torch.bool
+        assert torch.equal(aux["overflow"], ref_aux["overflow"])
+        assert torch.equal(aux["end_enter"].view(torch.int32),
+                           ref_aux["end_enter"].view(torch.int32))
+        if kw.get("with_trav"):
+            assert torch.equal(aux["trav"].view(torch.int32), ref[-1].view(torch.int32))
+        if kw.get("with_vox"):
+            live = ref[0] != cfg.sentinel
+            assert torch.equal(aux["vox"][live], ref[2][live])
+    assert bool(aux["overflow"][40:48].all()) and not bool(aux["overflow"][:40].any())
+    # e0 is 0 * inf (NaN) or inf, and the one crossing's time e0 + 0 * inf.
+    assert bool(torch.isnan(aux["end_enter"][24:32]).all())
+    assert bool(torch.isfinite(aux["end_enter"][32:]).all())

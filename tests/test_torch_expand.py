@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from ohm_tpu.core.map import MapFlag, OccupancyMap
 from ohm_tpu.core.rayflags import RayFlag
 from ohm_tpu.mapping.tpu_map import TpuRayMapper
+from ohm_tpu.ops import expand_pallas
 from ohm_tpu.ops.integrate import _unpack_batch, expand_records_jit
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.expand_cuda import expand_keys, expand_keys_reference
@@ -123,3 +124,56 @@ def test_expand_keys_on_cpu_is_the_plain_version():
     trav = expand_keys_reference(b, port_cfg, exclude_origin=True, with_trav=True)[-1]
     assert torch.equal(flat_t, ref_flat)
     assert torch.equal(aux_t["trav"].view(torch.int32), trav.view(torch.int32))
+
+
+EDGE_KINDS = ("on_walls", "zero_length", "axis_aligned", "invalid", "overflow")
+
+
+def _edge_batch(b: dict, kind: str, S: int, resolution: float, n: int = 16) -> dict:
+    """numpy copies of a batch's fields with its first ``n`` rays made
+    ``kind``: starting exactly on the voxel wall they leave (e0 = +-0),
+    of zero length (inv = 0), with a zero direction component on an axis
+    they still cross (inv = +-3e38), invalid, or crossing more than S
+    walls on an axis."""
+    out = {k: np.array(v) for k, v in b.items()}
+    half = np.float32(0.5) * np.float32(resolution)
+    d, sf, sa, ea = out["direction"], out["start_frac"], out["start_abs"], out["end_abs"]
+    if kind == "on_walls":
+        sf[:n] = np.where(d[:n] < 0, -half, half)
+    elif kind == "zero_length":
+        out["length"][:n] = 0.0
+        sf[:n // 2] = np.where(d[:n // 2] < 0, -half, half)
+    elif kind == "axis_aligned":
+        d[:n] = np.eye(3, dtype=np.float32)[np.arange(n) % 3]
+        d[:n // 2] *= -1
+        ea[:n, 1] = sa[:n, 1] + 2  # crosses an axis its direction does not move on
+    elif kind == "invalid":
+        out["valid"][:n] = False
+        out["exclude_start"][:n] = False
+    else:
+        ea[:n, np.arange(n) % 3] = sa[:n, np.arange(n) % 3] + S + 1 + np.arange(n)
+    return out
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_expand_aux_matches_pallas_interpret_on_edge_rays(kind):
+    """overflow and the end voxel's enter time (the plain prelude on the
+    CPU, which the kernel computes on the card) against the reference's
+    Pallas expand_keys aux, bit for bit, on rays whose set-up hits the
+    walk's edge cases."""
+    wire, jcfg = _wire(_scene(n=64, seed=5))
+    cfg = _port_cfg(jcfg)
+    edge = _edge_batch(dict(_unpack_batch({"rayw": jnp.asarray(wire)}, jcfg)), kind,
+                       cfg.max_steps, cfg.resolution)
+    _, _, ref_aux = expand_pallas.expand_keys({k: jnp.asarray(v) for k, v in edge.items()},
+                                              jcfg, interpret=True)
+    _, aux = expand_keys({k: torch.from_numpy(v) for k, v in edge.items()}, cfg)
+    ref_enter = np.asarray(ref_aux["end_enter"])
+    assert np.array_equal(ref_enter.view(np.uint32), aux["end_enter"].numpy().view(np.uint32))
+    assert np.array_equal(np.asarray(ref_aux["overflow"]), aux["overflow"].numpy())
+    assert aux["overflow"].numpy()[:16].all() == (kind == "overflow")
+    assert aux["overflow"].numpy()[16:].sum() == 0
+    if kind == "invalid":
+        assert (ref_enter[:16] == 0).all()
+    if kind == "axis_aligned":
+        assert (ref_enter[:16] > 1e30).all()  # e0 + dd on the still axis: ~1e37

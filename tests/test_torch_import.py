@@ -2,6 +2,7 @@
 without any module of the JAX package, its default device is CUDA and never
 quietly the CPU, and what it has not ported yet raises."""
 
+import ctypes
 import os
 import re
 import subprocess
@@ -180,8 +181,18 @@ def test_build_takes_every_cuda_source_for_hopper():
     names = sorted(os.path.basename(p) for p in _build.sources())
     assert names == ["common.cu", "deposit.cu", "expand.cu", "gather.cu", "probes.cu",
                      "slotgrid.cu"]
-    assert set(_build._SIGNATURES) >= {"ohm_gather_planes_f32", "ohm_tsdf_set_deposit",
-                                       "ohm_slotgrid_deposit", "ohm_probe_onehot_mma"}
+    sig = _build._SIGNATURES
+    assert set(sig) >= {"ohm_gather_planes_f32", "ohm_tsdf_set_deposit",
+                        "ohm_slotgrid_deposit", "ohm_probe_onehot_mma"}
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # K4 and its fused flag gather: (planes..., ids, n, [threshold,] sentinel, out, stream).
+    assert sig["ohm_gather_plane"] == [P, P, I, I, P, P]
+    assert sig["ohm_gather_ndt_flags"] == [P, P, P, I, I, I, P, P]
+    # K1 reads the unpacked batch: three f32 views with their row strides,
+    # start_abs, end_abs, valid, exclude_start, tcand, gmeta, the resolution;
+    # writes key, trav, vox, missed, overflow, end_enter; then B, S, K,
+    # shift, v, sentinel, exclude_origin and the stream.
+    assert sig["ohm_expand_keys"] == [P, I, P, I, P, I] + [P] * 6 + [F] + [P] * 6 + [I] * 7 + [P]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags and "fast_math" not in flags

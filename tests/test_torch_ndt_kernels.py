@@ -6,6 +6,10 @@ package's Pallas kernels in interpret mode:
       the unmasked one) and a second end/sample stream: occupancy bits and
       the touched count identical over [0, sentinel]
   K4  gather_plane over a sorted id stream with sentinel padding: identical
+  K4 fused with its flag build (gather_ndt_flags): the reference's Gaussian
+      flag plane (integrate_ndt.py:195-197) gathered by gather_plane, on an
+      arena with +inf, NaN and counts on both sides of the threshold and at
+      or above 2^31: identical
   K1  expand_keys with_vox: keys identical, voxel planes identical on every
       lane whose key is not the sentinel (the reference's contract)
 
@@ -24,10 +28,11 @@ from ohm_tpu.core.rayflags import RayFlag
 from ohm_tpu.mapping.tpu_map import TpuRayMapper
 from ohm_tpu.ops import deposit_pallas, expand_pallas
 from ohm_tpu.ops.integrate import IntegrateConfig as RefConfig
-from ohm_tpu.ops.integrate import _unpack_batch
+from ohm_tpu.ops.integrate import _unobserved, _unpack_batch
 from ohm_tpu_torch.ops import deposit_cuda, expand_cuda, gather_cuda
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.wire import unpack_batch
+from ohm_tpu_torch.testing import ndt_flag_arena
 
 BASE = dict(resolution=0.1, region_shift=3, capacity=16, max_steps=64,
             hit_value=0.85, miss_value=-0.15, occupancy_threshold=0.0,
@@ -147,6 +152,40 @@ def test_gather_plain_matches_pallas_interpret():
     assert port.dtype == torch.int32
     assert np.array_equal(ref, port.numpy())
     assert (port.numpy()[-300:] == 0).all() and np.abs(port.numpy()).sum() > 0
+
+
+@pytest.mark.parametrize("threshold", [3, 1, 0])
+def test_ndt_flag_gather_plain_matches_plane_and_pallas_gather(threshold):
+    ref_cfg, cfg = _cfgs()
+    n_arena = -(-(ref_cfg.sentinel + 1 + ref_cfg.scatter_pad) // 512) * 512
+    occ, count = ndt_flag_arena(n_arena, cfg.sentinel, np.random.default_rng(20 + threshold),
+                                n_nan=200, n_big=300, seen=0.7)
+    rng = np.random.default_rng(threshold)
+    ids = np.concatenate([np.sort(rng.integers(0, cfg.sentinel, 3000)),
+                          np.full(257, cfg.sentinel)]).astype(np.int32)
+    gauss8 = (~_unobserved(jnp.asarray(occ))
+              & (jnp.asarray(count) >= threshold)).astype(jnp.int8)
+    ref = np.asarray(deposit_pallas.gather_plane(gauss8, jnp.asarray(ids), ref_cfg,
+                                                 interpret=True))
+    port = gather_cuda.gather_ndt_flags_reference(
+        torch.from_numpy(occ), torch.from_numpy(count.view(np.int32)), torch.from_numpy(ids),
+        threshold, cfg.sentinel)
+    assert port.dtype == torch.int32
+    assert np.array_equal(ref, port.numpy())
+    # The wrapper on CPU tensors is the plain version.
+    wrapped = gather_cuda.gather_ndt_flags(
+        torch.from_numpy(occ), torch.from_numpy(count.view(np.int32)), torch.from_numpy(ids),
+        threshold, cfg.sentinel)
+    assert torch.equal(wrapped, port)
+    real = ids[:-257]
+    assert (port.numpy()[-257:] == 0).all()
+    assert 0 < port.numpy().sum() < real.size
+    # The edge voxels were gathered: NaN occupancy counts as observed, and
+    # counts >= 2^31 pass every threshold.
+    nan_hit = np.isnan(occ[real]) & (count[real] >= threshold)
+    big_hit = (count[real] >= 2**31) & ~np.isposinf(occ[real])
+    assert nan_hit.any() and big_hit.any()
+    assert (port.numpy()[:-257][nan_hit | big_hit] == 1).all()
 
 
 def _scene(n=96, seed=13):

@@ -59,9 +59,16 @@ def test_stream_and_f64_reference_match_the_script(size):
     assert np.array_equal(bits(pd.np_reference(key, occ0, c)), bits(ref.np_reference(key, occ0)))
     flat = key >> 1
     assert np.unique(flat[flat < c * V] >> 15).size == live
-    if n == pd.N:  # the bench-shaped stream
-        assert int((flat == c * V).sum()) == 25_181
-        assert np.unique(flat[flat < c * V]).size == 636_960
+    # The sentinel and touched counts follow from the stream itself (numpy's
+    # generator draws another stream under other numpy versions): ~2% of the
+    # records are sentinel padding, and the live slots' voxels are touched.
+    ref_flat = ref.make_stream() >> 1
+    sentinels = int((flat == c * V).sum())
+    assert sentinels == int((ref_flat == c * V).sum())
+    assert abs(sentinels - 0.02 * n) < 5 * np.sqrt(0.02 * n)
+    touched = np.unique(flat[flat < c * V]).size
+    assert touched == np.unique(ref_flat[ref_flat < c * V]).size
+    assert 0 < touched <= min(n - sentinels, live * V)
 
 
 @pytest.fixture(scope="module")
