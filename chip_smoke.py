@@ -14,7 +14,8 @@ exit code is not 0 and no result line is printed:
                g++ the native rayflow host pass (ohm_tpu_torch/native)
   k1_expand    the expand kernel against its plain PyTorch version on wires
                of the box, corner and miss scenes and on edge rays (starts
-               on voxel walls, zero lengths, denormal direction components,
+               on voxel walls, zero lengths, denormal direction components
+               (which read as zero, as under XLA),
                invalid rays, more than S crossings): keys, missed counts,
                overflow flags and end enter times bit-identical (tolerance
                0), on the card and against the plain version on the CPU;
@@ -22,8 +23,12 @@ exit code is not 0 and no result line is printed:
                only), and which operand ATen's CUDA maximum and clamp
                return for signed zeros and NaN
   k2_deposit   the deposit-and-sweep kernel against its plain version at the
-               bench shape (512 slots x 32768 voxels, ~1.1M keys) under each
-               exclude flag: occupancy bits and touched count identical
+               bench shape (512 slots x 32768 voxels, ~1.1M sorted keys) under
+               each exclude flag, and on ohm_tpu_torch.testing's edge
+               streams (a run past the 65535 cap, runs across 256- and
+               1024-record blocks, empty, all-sentinel, negative keys):
+               occupancy bits and touched count identical, and identical
+               between two runs
   hardware_differential
                TorchRayMapper on the card, 1024-ray box scan, against the
                f64 oracle under bench.py's gate, and bit-identical to the
@@ -72,22 +77,27 @@ exit code is not 0 and no result line is printed:
                bit
   k3_ndt_deposit
                the NDT deposit-and-sweep kernel against its plain version at
-               the NDT-OM shape (1024 slots x 32768 voxels, ~1.1M walk keys,
-               8192 end keys), with the miss delta as a sparse stream and as
-               a dense plane, over an arena mixing +inf, free, occupied and
-               saturated voxels: occupancy bits and touched count identical
+               the NDT-OM shape (1024 slots x 32768 voxels, ~1.1M walk keys
+               with their bounds or sorted by the wrapper, 8192 end keys),
+               with the miss delta as a sparse stream and as a dense plane,
+               over an arena mixing +inf, free, occupied and saturated
+               voxels, and on the edge streams (K2's, end-only and
+               delta-only voxels, +-0.0 deltas, a delta behind zero-valued
+               records): occupancy bits and touched count identical, and
+               identical between two runs
   k4_gather    the plane-gather kernel against its plain version on a
                sorted stream of ~1.5M ids with sentinel padding, in whole
                16-byte vectors and with a scalar tail: identical; ids off a
                16-byte boundary refused; its time alone
-  wrapper_cost the K1 wrapper (keys, traversal, voxel planes), K4 beside
-               index_select, the flag plane's build + K4 and the fused flag
-               gather, each on fixed inputs (bench.py's first box batch; an
-               NDT-OM arena with 600,000 sorted ids): host us a call over
-               calls without a synchronize, CUDA-event ms a call, the kernel
-               alone, and the device time and operations of the whole call
-               (torch.profiler).  --wrappers-of DIR prints only this line,
-               for the port of another checkout on the same inputs
+  wrapper_cost the K1 wrapper (keys, traversal, voxel planes), K2, K3, K4
+               beside index_select, the flag plane's build + K4 and the fused
+               flag gather, each on fixed inputs (bench.py's first box batch;
+               an NDT-OM arena with 600,000 sorted ids; K2's and K3's
+               synthetic streams): host us a call over calls without a
+               synchronize, CUDA-event ms a call, the kernel alone, the device
+               time and operations of the whole call (torch.profiler) and the
+               device memory a call allocates.  --wrappers-of DIR prints only
+               this line, for the port of another checkout on the same inputs
   k4_ndt_flags the fused NDT flag gather (K4 reading occupancy and
                mean_count) against its plain version (the arena-wide flag
                plane, then K4's plain gather) at the NDT-OM arena, with +inf,
@@ -115,7 +125,9 @@ exit code is not 0 and no result line is printed:
   ndt_tm_integrate_rays_per_sec
                the integrate part of config 5: one 1,048,576-ray box frame
                (half extents 15, 15, 7), intensities uniform in [0, 1),
-               miss_k 32768, synchronous 8192-ray batches
+               miss_k 32768, synchronous 8192-ray batches; then K3 on the
+               arguments one more batch gave it (the sparse delta), against
+               its plain version and timed
   k5_gather_f32
                the f32 seed-gather kernel against its plain version on a
                sorted stream of ~1.2M ids with sentinel padding over two
@@ -140,7 +152,9 @@ exit code is not 0 and no result line is printed:
                the launch counts, a profile line and the peak allocation;
                before it (the "tsdf_kernel_checks" line) K1 with voxel planes,
                K5 and K6 on the arguments this path gave them in one batch,
-               each against its plain version bit for bit
+               each against its plain version bit for bit; K5 against two
+               index_selects and K6 against two index_put_s in six
+               alternated turns (medians and turns won)
 
   p_path       the deposit probe's own path (P), through its entry point
                (ohm_tpu_torch.scripts.probe_deposit main) at full size: the
@@ -150,9 +164,11 @@ exit code is not 0 and no result line is printed:
   p_probes     each probe's kernel against its plain version and its expected
                array, bit for bit
   p_slotgrid   the slot-grid kernel against its plain version at full size
-               and on the edge streams, fused and unfused, bit for bit; the
-               fused result against the f64 reference (f32 roundings, no
-               gate), and bit for bit against scatter_deposit and K3
+               and on the edge streams, fused and unfused, bit for bit, and
+               K3 against its plain version on the same streams (and two
+               runs); the fused result against the f64 reference (f32
+               roundings, no gate), and bit for bit against scatter_deposit
+               and K3
   p_times      the slot-grid kernel beside its plain version, K3,
                scatter_deposit and onehot_deposit on the same stream, each
                probe beside its plain version, and their bounds
@@ -202,7 +218,8 @@ from ohm_tpu_torch.ops import (_build, deposit_cuda, expand_cuda, gather_cuda, p
 from ohm_tpu_torch.ops.integrate import apply_records, apply_sample_layers, expand_records
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit
-from ohm_tpu_torch.testing import dispatched_ops, edge_rays, ndt_flag_arena
+from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, deposit_edge_stream,
+                                   dispatched_ops, edge_rays, ndt_edge_streams, ndt_flag_arena)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -406,17 +423,18 @@ def count_host_syncs(fn) -> dict:
     return {"count": sum(sites.values()), "sites": sites}
 
 
-def device_profile(fn, kernel: str = "", reps: int = 10) -> dict:
-    """torch.profiler's device rows while ``fn`` runs: the mean device time
-    of one launch of the CUDA kernels whose name holds ``kernel`` (the
-    kernel alone, without its wrapper's host work; each call launches it
-    once), and per call the time of every device operation (kernels and
-    memsets: the device time of the whole call) and their count.  On the
+def device_profile(fn, kernel="", reps: int = 10) -> dict:
+    """torch.profiler's device rows while ``fn`` runs: the kernel alone,
+    without its wrapper's host work (the sum over the CUDA kernels whose
+    name holds ``kernel``, or one of a tuple of names, of each one's mean
+    device time a launch: a call launches each once), and per call the
+    time of every device operation (kernels and memsets: the device time
+    of the whole call) and their count.  On the
     H100 with torch 2.11 a short trace at times loses some or all of its
     device rows (a count a call below the call's own shows it): the mean a
     launch does not move with a partial loss, and a trace that saw no
-    launch of ``kernel`` (or no row at all) is taken again, up to three
-    times."""
+    launch of one of the named kernels (or no row at all) is taken again,
+    up to three times."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -426,12 +444,13 @@ def device_profile(fn, kernel: str = "", reps: int = 10) -> dict:
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        named = [e for e in rows if kernel and kernel in e.key]
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        named = [e for e in rows if any(k and k in e.key for k in names)]
         launches = sum(e.count for e in named)
-        if (launches if kernel else rows):
+        if (all(any(k in e.key for e in named) for k in names) if kernel else rows):
             break
     us = lambda es: sum(getattr(e, "self_device_time_total", 0) for e in es)
-    return {"kernel_ms": us(named) / 1e3 / launches if launches else 0.0,
+    return {"kernel_ms": sum(us([e]) / e.count for e in named) / 1e3 if launches else 0.0,
             "device_ms": us(rows) / 1e3 / reps,
             "device_ops": sum(e.count for e in rows) / reps}
 
@@ -548,18 +567,15 @@ def phase_k1() -> dict:
         key_k, aux = expand_cuda.expand_keys(b, cfg, exclude_origin=excl)
         aux_c = expand_cuda._prelude(b_cpu, cfg)[-1]
         torch.cuda.synchronize()
-        # The card against the plain version on the CPU, on the rays whose
-        # set-up is finite: a denormal direction component makes NaN walk
-        # times, whose payload bits (which the walk compares as integers)
-        # differ between x86 and CUDA.
+        # The card against the plain version on the CPU, every ray: a
+        # denormal direction component reads as zero on both.
         d = b_cpu["direction"]
-        ok_rays = ~((d != 0) & (d.abs() < torch.finfo(torch.float32).tiny)).any(dim=1)
         row["equal_cpu"] = bool(
-            torch.equal(key_k.cpu()[ok_rays], key_c[ok_rays])
-            and (int(aux["missed_n"]) == int(missed_c) or not bool(ok_rays.all()))
+            torch.equal(key_k.cpu(), key_c) and int(aux["missed_n"]) == int(missed_c)
             and torch.equal(aux["overflow"].cpu(), aux_c["overflow"])
-            and same_bits(aux["end_enter"].cpu()[ok_rays], aux_c["end_enter"][ok_rays]))
-        row["rays_compared_cpu"] = int(ok_rays.sum())
+            and same_bits(aux["end_enter"].cpu(), aux_c["end_enter"]))
+        row["denormal_rays"] = int(
+            ((d != 0) & (d.abs() < torch.finfo(torch.float32).tiny)).any(dim=1).sum())
         row.update(scene=name, rays=int(b["valid"].sum()))
         rows.append(row)
         if not (row["bit_identical"] and row["equal_cpu"]):
@@ -567,7 +583,8 @@ def phase_k1() -> dict:
     if rows[-1]["missed"] == 0:
         raise AssertionError("the miss scene made no record miss")
     edge = rows[2]
-    if not (edge["overflow_rays"] >= 8 and edge["nan_end_enter"] >= 4):
+    if not (edge["overflow_rays"] >= 8 and edge["denormal_rays"] >= 8
+            and edge["nan_end_enter"] == 0):
         raise AssertionError(f"the edge rays did not reach their cases: {edge}")
     ops = sorted(set(dispatched_ops(lambda: expand_cuda.expand_keys(
         box_b, box_cfg, with_trav=True, with_vox=True))))
@@ -613,9 +630,27 @@ def _bench_arena_and_stream(cfg, rng):
     return torch.from_numpy(occ).cuda(), torch.from_numpy(key).cuda()
 
 
+def check_k2(occ0, keys, cfg, **row) -> dict:
+    """K2 against its plain version on one sorted stream, each on its own
+    clone of the arena, and against a second run of itself: occupancy bits
+    and touched counts.  Raises on any difference."""
+    occ_k, touched_k = deposit_cuda.deposit_and_sweep(occ0.clone(), keys, cfg)
+    occ_2, touched_2 = deposit_cuda.deposit_and_sweep(occ0.clone(), keys, cfg)
+    occ_p, touched_p = deposit_cuda.deposit_and_sweep_reference(occ0.clone(), keys, cfg)
+    torch.cuda.synchronize()
+    row.update(keys=keys.numel(), touched=int(touched_k),
+               changed=int((occ_k.view(torch.int32) != occ0.view(torch.int32)).sum()),
+               max_abs_err=finite_err(occ_k, occ_p),
+               bit_identical=bool(same_bits(occ_k, occ_p)
+                                  and int(touched_k) == int(touched_p)),
+               two_runs_identical=bool(same_bits(occ_k, occ_2)
+                                       and int(touched_k) == int(touched_2)))
+    if not (row["bit_identical"] and row["two_runs_identical"]):
+        raise AssertionError(f"deposit kernel differs from its plain version: {row}")
+    return row
+
+
 def phase_k2() -> dict:
-
-
     base = TorchRayMapper(OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE),
                           capacity=CAPACITY, device="cuda")._config(0)
     occ0, keys = _bench_arena_and_stream(base, np.random.default_rng(SEED))
@@ -623,21 +658,14 @@ def phase_k2() -> dict:
                                     RayFlag.EXCLUDE_UNOBSERVED,
                                     RayFlag.EXCLUDE_FREE | RayFlag.EXCLUDE_OCCUPIED)]
     cases.append((0, {"saturation_min": -1.0, "saturation_max": 2.0}))
-    rows = []
-    for flags, extra in cases:
-        cfg = dataclasses.replace(base, ray_flags=flags, **extra)
-        occ_k, touched_k = deposit_cuda.deposit_and_sweep(occ0.clone(), keys, cfg)
-        occ_p, touched_p = deposit_cuda.deposit_and_sweep_reference(occ0.clone(), keys, cfg)
-        torch.cuda.synchronize()
-        same = torch.equal(occ_k.view(torch.int32), occ_p.view(torch.int32))
-        fin = torch.isfinite(occ_k) & torch.isfinite(occ_p)
-        err = float((occ_k[fin] - occ_p[fin]).abs().max())
-        changed = int((occ_k.view(torch.int32) != occ0.view(torch.int32)).sum())
-        rows.append({"flags": flags, **extra, "keys": keys.numel(), "touched": int(touched_k),
-                     "changed": changed, "max_abs_err": err,
-                     "bit_identical": bool(same and int(touched_k) == int(touched_p))})
-        if not rows[-1]["bit_identical"]:
-            raise AssertionError(f"deposit kernel differs from its plain version: {rows[-1]}")
+    rows = [check_k2(occ0, keys, dataclasses.replace(base, ray_flags=flags, **extra),
+                     flags=flags, **extra) for flags, extra in cases]
+    if min(r["changed"] for r in rows) == 0:
+        raise AssertionError(f"a deposit case changed no voxel: {rows}")
+    # The streams the run-length design makes risky, on the same arena.
+    for name in DEPOSIT_EDGE_STREAMS:
+        ek = torch.from_numpy(deposit_edge_stream(name, base.sentinel)).cuda()
+        rows.append(check_k2(occ0, ek, base, stream=name))
     emit({"phase": "k2_deposit", "tolerance": 0, "cases": rows})
     return {"max_abs_err": max(r["max_abs_err"] for r in rows)}
 
@@ -649,22 +677,30 @@ def _ndt_config_at_bench_shape():
                        capacity=NDT_CAPACITY, device="cuda")._config(0)
 
 
-def _ndt_arena_and_streams(cfg, rng):
+def _ndt_arena_and_streams(cfg, rng, n_walk: int = 1_100_000):
     """An NDT arena mixing +inf (unobserved), free, occupied and clamped
-    voxels; a ~1.1M walk stream of misses in sorted order, a fifth of it
-    masked to the sentinel as the NDT miss phase masks Gaussian-handled
-    records; 8192 end keys (hits and misses, unsorted); and a sparse miss
-    delta over 32768 records with one value per voxel at its last record,
-    some values zero, and its dense plane."""
+    voxels; a walk stream of ``n_walk`` misses in sorted order over 320
+    live slots with a prefix of half of its voxels' runs masked to the
+    sentinel (~20% of the records), as the NDT miss phase masks
+    Gaussian-handled records, and the same stream unmasked (bounds); 8192
+    end keys (hits and misses, unsorted); and a sparse miss delta over
+    32768 records with one value per voxel at its last record, some values
+    zero, and its dense plane.  Returns (occupancy, walk, end, (delta keys,
+    delta values), plane, bounds) on the card."""
     n_vox = cfg.sentinel
     occ = np.full(n_vox + 1, np.inf, np.float32)
     seeded = rng.integers(0, n_vox, n_vox // 4)
     occ[seeded] = rng.normal(0.0, 2.0, seeded.size).astype(np.float32)
     occ[seeded[: seeded.size // 50]] = np.float32(cfg.max_value)
     occ[seeded[seeded.size // 50: seeded.size // 25]] = np.float32(cfg.min_value)
-    live = rng.integers(0, 320, 1_100_000) * cfg.voxels_per_region
+    live = rng.integers(0, 320, n_walk) * cfg.voxels_per_region
     flat = np.sort(live + rng.integers(0, cfg.voxels_per_region, live.size))
-    walk = np.where(rng.random(flat.size) < 0.2, n_vox, flat) << 1
+    starts = np.flatnonzero(np.r_[True, flat[1:] != flat[:-1]])
+    run = np.cumsum(np.r_[True, flat[1:] != flat[:-1]]) - 1
+    lengths = np.diff(np.r_[starts, flat.size])
+    prefix = np.where(rng.random(starts.size) < 0.5, rng.integers(0, lengths + 1), 0)
+    masked = np.arange(flat.size) - starts[run] < prefix[run]
+    walk = np.where(masked, n_vox, flat) << 1
     end_flat = rng.integers(0, n_vox, RAYS_PER_BATCH)
     end_flat[rng.random(RAYS_PER_BATCH) < 0.05] = n_vox
     end = (end_flat << 1) | (rng.random(RAYS_PER_BATCH) < 0.7)
@@ -676,34 +712,67 @@ def _ndt_arena_and_streams(cfg, rng):
     plane[dk[last]] = dv[last]
     cuda = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (
         occ, walk.astype(np.int32), end.astype(np.int32), (dk << 1).astype(np.int32), dv,
-        plane)]
-    return cuda[0], cuda[1], cuda[2], (cuda[3], cuda[4]), cuda[5]
+        plane, (flat << 1).astype(np.int32))]
+    return cuda[0], cuda[1], cuda[2], (cuda[3], cuda[4]), cuda[5], cuda[6]
+
+
+def check_k3(occ0, walk, end, miss_delta, cfg, bounds=None, **row) -> tuple[dict, torch.Tensor]:
+    """K3 against its plain version on one set of streams (the walk with its
+    ``bounds``, or sorted by the wrapper), each on its own clone of the
+    arena, and against a second run of itself: occupancy bits and touched
+    counts.  Raises on any difference; returns the row and the kernel's
+    occupancy."""
+    run = lambda: deposit_cuda.deposit_and_sweep_ndt(occ0.clone(), walk, end, miss_delta, cfg,
+                                                     bounds_key=bounds)
+    (occ_k, touched_k), (occ_2, touched_2) = run(), run()
+    occ_p, touched_p = deposit_cuda.deposit_and_sweep_ndt_reference(
+        occ0.clone(), walk, end, miss_delta, cfg)
+    torch.cuda.synchronize()
+    row.update(walk_bounds=bounds is not None, walk_keys=walk.numel(), end_keys=end.numel(),
+               touched=int(touched_k),
+               changed=int((occ_k.view(torch.int32) != occ0.view(torch.int32)).sum()),
+               max_abs_err=finite_err(occ_k, occ_p),
+               bit_identical=bool(same_bits(occ_k, occ_p)
+                                  and int(touched_k) == int(touched_p)),
+               two_runs_identical=bool(same_bits(occ_k, occ_2)
+                                       and int(touched_k) == int(touched_2)))
+    if not (row["bit_identical"] and row["two_runs_identical"]):
+        raise AssertionError(f"NDT deposit kernel differs from its plain version: {row}")
+    return row, occ_k
 
 
 def phase_k3() -> dict:
     base = _ndt_config_at_bench_shape()
-    occ0, walk, end, sparse, plane = _ndt_arena_and_streams(base, np.random.default_rng(SEED))
+    occ0, walk, end, sparse, plane, bounds = _ndt_arena_and_streams(
+        base, np.random.default_rng(SEED))
     rows, results = [], {}
-    for name, delta, extra in (("sparse", sparse, {}), ("dense", plane, {}),
-                               ("sparse_saturation", sparse,
-                                {"saturation_min": -1.0, "saturation_max": 2.0})):
-        cfg = dataclasses.replace(base, **extra)
-        occ_k, touched_k = deposit_cuda.deposit_and_sweep_ndt(occ0.clone(), walk, end, delta, cfg)
-        occ_p, touched_p = deposit_cuda.deposit_and_sweep_ndt_reference(
-            occ0.clone(), walk, end, delta, cfg)
-        torch.cuda.synchronize()
-        same = torch.equal(occ_k.view(torch.int32), occ_p.view(torch.int32))
-        fin = torch.isfinite(occ_k) & torch.isfinite(occ_p)
-        err = float((occ_k[fin] - occ_p[fin]).abs().max())
-        changed = int((occ_k.view(torch.int32) != occ0.view(torch.int32)).sum())
-        results[name] = occ_k
-        rows.append({"delta": name, **extra, "walk_keys": walk.numel(), "end_keys": end.numel(),
-                     "touched": int(touched_k), "changed": changed, "max_abs_err": err,
-                     "bit_identical": bool(same and int(touched_k) == int(touched_p))})
-        if not rows[-1]["bit_identical"] or changed == 0:
-            raise AssertionError(f"NDT deposit kernel differs from its plain version: {rows[-1]}")
-    if not torch.equal(results["sparse"].view(torch.int32), results["dense"].view(torch.int32)):
-        raise AssertionError("the sparse and dense miss deltas deposit differently")
+    for name, delta, extra, walk_bounds in (
+            ("sparse", sparse, {}, bounds), ("dense", plane, {}, bounds),
+            ("sparse_sorted_here", sparse, {}, None),
+            ("sparse_saturation", sparse, {"saturation_min": -1.0, "saturation_max": 2.0},
+             bounds)):
+        row, results[name] = check_k3(occ0, walk, end, delta, dataclasses.replace(base, **extra),
+                                      walk_bounds, delta=name, **extra)
+        rows.append(row)
+        if row["changed"] == 0:
+            raise AssertionError(f"the NDT deposit changed no voxel: {row}")
+    if not (same_bits(results["sparse"], results["dense"])
+            and same_bits(results["sparse"], results["sparse_sorted_here"])):
+        raise AssertionError("the sparse and dense miss deltas, or the walk with its bounds "
+                             "and sorted, deposit differently")
+    # The streams the run-length design makes risky, end keys shuffled, on
+    # the same arena, with the sparse and the dense delta, the walk with its
+    # bounds; and sorted by the wrapper with the sparse delta.
+    for name in NDT_EDGE_STREAMS:
+        st = {k: torch.from_numpy(v).cuda()
+              for k, v in ndt_edge_streams(name, base.sentinel).items()}
+        end_e = st["end"][torch.randperm(st["end"].numel(), device=st["end"].device)]
+        for form, delta, walk_bounds in (("sparse", (st["dkeys"], st["dvals"]), st["bounds"]),
+                                         ("dense", st["plane"], st["bounds"]),
+                                         ("sparse_sorted_here", (st["dkeys"], st["dvals"]),
+                                          None)):
+            rows.append(check_k3(occ0, st["walk"], end_e, delta, base, walk_bounds,
+                                 stream=name, delta=form)[0])
     emit({"phase": "k3_ndt_deposit", "tolerance": 0, "cases": rows})
     return {"max_abs_err": max(r["max_abs_err"] for r in rows)}
 
@@ -1050,12 +1119,14 @@ def phase_bench(k1: dict) -> dict:
     # The main path, counted: every count is 0 just before it.
     expand_cuda.expand_keys.launches = 0
     deposit_cuda.deposit_and_sweep.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     with without_gc_pauses():
         t0 = time.perf_counter()
         for b in batches:
             mapper.integrate_rays(b)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {"expand_keys": expand_cuda.expand_keys.launches,
                 "deposit_and_sweep": deposit_cuda.deposit_and_sweep.launches}
     stats = mapper.stats
@@ -1098,6 +1169,8 @@ def phase_bench(k1: dict) -> dict:
     k2_plain, k2_kern = plain_vs_kernel_ms(
         lambda: deposit_cuda.deposit_and_sweep_reference(occ_a, key_s, cfg0),
         lambda: deposit_cuda.deposit_and_sweep(occ_b, key_s, cfg0))
+    k2_prof = device_profile(lambda: deposit_cuda.deposit_and_sweep(occ_b, key_s, cfg0),
+                             K2_KERNELS)
     # K2 must read each key and read and write each touched voxel.
     touched = int(deposit_cuda.deposit_and_sweep(occ.clone(), key_s, cfg0)[1])
     bounds = {"expand_keys": k1_bound(b, cfg, with_vox=False),
@@ -1114,13 +1187,13 @@ def phase_bench(k1: dict) -> dict:
           "wire_bytes_per_ray": setups[0][0].nbytes / RAYS_PER_BATCH,
           "kernel_ms": {"expand_keys": k1_kern, "deposit_and_sweep": k2_kern},
           "plain_ms": {"expand_keys": k1_plain, "deposit_and_sweep": k2_plain},
-          "kernel_alone_ms": {"expand_keys": k1_alone},
-          "launches": launches,
+          "kernel_alone_ms": {"expand_keys": k1_alone, "deposit_and_sweep": k2_prof["kernel_ms"]},
+          "deposit_and_sweep_device": k2_prof, "launches": launches,
           "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped")},
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+          "max_memory_allocated_bytes": peak})
     return {"launches": launches, "ms": {"expand_keys": k1_kern, "deposit_and_sweep": k2_kern},
             "plain_ms": {"expand_keys": k1_plain, "deposit_and_sweep": k2_plain},
-            "bound": bounds, "alone_ms": k1_alone}
+            "bound": bounds, "alone_ms": k1_alone, "k2_device": k2_prof}
 
 
 def phase_k1_trav(k1: dict) -> dict:
@@ -1471,6 +1544,7 @@ def phase_outdoor_mean_bench() -> dict:
         fn.launches = 0
     batches_before = mapper.stats["batches"]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with without_gc_pauses():
         t0 = time.perf_counter()
         for rays in batches:
@@ -1478,6 +1552,7 @@ def phase_outdoor_mean_bench() -> dict:
         mapper.flush()
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {name: fn.launches for name, fn in counters.items()}
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
@@ -1505,6 +1580,7 @@ def phase_outdoor_mean_bench() -> dict:
           "source": "synthetic outdoor_rays (no .laz round trip)",
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "host_syncs_per_batch": syncs, "launches": launches,
+          "max_memory_allocated_bytes": peak,
           "regions": len(m.chunks), "observed_voxels": observed, "mean_hits": hits,
           "wire_bytes_per_ray": setups[0][0].nbytes / RAYS_PER_BATCH,
           "stats": {k: stats[k] for k in ("batches", "missed_updates", "overflow",
@@ -1569,12 +1645,14 @@ def phase_ndt_om_bench() -> dict:
                 "gather_plane": gather_cuda.gather_plane}
     for fn in counters.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     with without_gc_pauses():
         t0 = time.perf_counter()
         for b in batches:
             mapper.integrate_rays(b)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {name: fn.launches for name, fn in counters.items()}
     stats = mapper.stats
     timed_overflow = stats["ndt_overflow"] - overflow_before
@@ -1597,7 +1675,7 @@ def phase_ndt_om_bench() -> dict:
     torch.cuda.synchronize()
     (b, cfg0), kw = k1_args[0]
     (occ_f, count, ids, threshold, sentinel), _ = kf_args[0]
-    (occ, walk, end, delta, dcfg), _ = k3_args[0]
+    (occ, walk, end, delta, dcfg), k3_kw = k3_args[0]
     errs = check_ndt_path_calls(k1_args[0], kf_args[0], k3_args[0])
     kernel_ms, plain_ms = {}, {}
     plain_ms["expand_keys"], kernel_ms["expand_keys"] = plain_vs_kernel_ms(
@@ -1645,7 +1723,11 @@ def phase_ndt_om_bench() -> dict:
     occ_a, occ_b = occ.clone(), occ.clone()
     plain_ms["deposit_and_sweep_ndt"], kernel_ms["deposit_and_sweep_ndt"] = plain_vs_kernel_ms(
         lambda: deposit_cuda.deposit_and_sweep_ndt_reference(occ_a, walk, end, delta, dcfg),
-        lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg))
+        lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg, **k3_kw))
+    k3_prof = device_profile(
+        lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg, **k3_kw),
+        K3_KERNELS)
+    alone_ms["deposit_and_sweep_ndt"] = k3_prof["kernel_ms"]
     dk, dv = delta
     changed = distinct(torch.cat([walk >> 1, end >> 1, (dk >> 1)[dv != 0]]), dcfg.sentinel)
     n_keys = walk.numel() + end.numel() + dk.numel()
@@ -1655,8 +1737,14 @@ def phase_ndt_om_bench() -> dict:
               # Per id: read it, write its flag; per distinct id: one word of
               # occupancy and one of mean_count; ~6 operations an id.
               "gather_ndt_flags": bound(8 * ids.numel() + 8 * touched_ids, 6 * ids.numel()),
-              "deposit_and_sweep_ndt": bound(4 * (walk.numel() + end.numel()) + 8 * dk.numel()
+              # What the function needs: per walk record, end key and delta
+              # record theirs, per changed voxel its occupancy read and written.
+              "deposit_and_sweep_ndt": bound(4 * walk.numel() + 4 * end.numel() + 8 * dk.numel()
                                              + 8 * changed + 4, 2 * n_keys + 18 * changed)}
+    # What this design reads besides: the walk's bounds stream, 4 bytes a
+    # walk record (not part of the bound).
+    k3_design = bound(bounds["deposit_and_sweep_ndt"]["bound_bytes"] + 4 * walk.numel(),
+                      2 * n_keys + 18 * changed)
     flag_gather = {"ids": ids.numel(), "arena_voxels": occ_f.numel(), "threshold": threshold,
                    "wrapper_ms": flag_ms, "device_ms_alone": flag_alone,
                    "k4_vs_index_select": k4_vs_lib, "kernel_alone_ms": alone_ms}
@@ -1671,14 +1759,15 @@ def phase_ndt_om_bench() -> dict:
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "walk_keys_per_batch": walk.numel(), "k_stream": delta[0].numel(),
           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "kernel_alone_ms": alone_ms,
-          "launches": launches,
+          "deposit_and_sweep_ndt_device": k3_prof, "launches": launches,
           "timed_ndt_overflow": timed_overflow,
           "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped",
                                           "ndt_overflow", "ndt_flagged")},
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+          "max_memory_allocated_bytes": peak})
     return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
             "max_abs_err": errs, "bound": bounds, "library_ms": library_ms,
-            "alone_ms": alone_ms, "flag_gather": flag_gather}
+            "alone_ms": alone_ms, "flag_gather": flag_gather, "k3_device": k3_prof,
+            "k3_design_bound": k3_design}
 
 
 def check_k1_call(k1_call) -> dict:
@@ -1736,8 +1825,9 @@ def check_ndt_path_calls(k1_call, kf_call, k3_call) -> dict:
     kf_ok = torch.equal(out_k, out_p) and int(out_k.sum()) > 0
     k4_ok = torch.equal(out_4, out_p)
 
-    (occ, walk, end, delta, dcfg), _ = k3_call
-    occ_k, touched_k = deposit_cuda.deposit_and_sweep_ndt(occ.clone(), walk, end, delta, dcfg)
+    (occ, walk, end, delta, dcfg), k3_kw = k3_call
+    occ_k, touched_k = deposit_cuda.deposit_and_sweep_ndt(occ.clone(), walk, end, delta, dcfg,
+                                                          **k3_kw)
     occ_p, touched_p = deposit_cuda.deposit_and_sweep_ndt_reference(
         occ.clone(), walk, end, delta, dcfg)
     torch.cuda.synchronize()
@@ -1772,6 +1862,7 @@ def phase_ndt_tm_frame() -> None:
     intens = rng.uniform(0.0, 1.0, TM_FRAME_RAYS).astype(np.float32)
     step = 2 * RAYS_PER_BATCH
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with without_gc_pauses():
         t0 = time.perf_counter()
         for i in range(0, frame.shape[0], step):
@@ -1779,6 +1870,7 @@ def phase_ndt_tm_frame() -> None:
                                   intensities=intens[i // 2:i // 2 + RAYS_PER_BATCH])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped"):
         if stats[name]:
@@ -1793,10 +1885,28 @@ def phase_ndt_tm_frame() -> None:
     if observed == 0 or not finite or stats["ndt_flagged"] == 0:
         raise AssertionError(f"NDT-TM frame: observed={observed} finite={finite} "
                              f"ndt_flagged={stats['ndt_flagged']}")
+
+    # The frame's deposit: K3 on the arguments one more batch gave it (the
+    # sparse delta), against its plain version and timed.
+    with first_call_args(deposit_cuda, "deposit_and_sweep_ndt") as k3_args:
+        mapper.integrate_rays(frame[:step], intensities=intens[:RAYS_PER_BATCH])
+    torch.cuda.synchronize()
+    (occ, walk, end, delta, dcfg), kw = k3_args[0]
+    if not isinstance(delta, tuple):
+        raise AssertionError("the NDT-TM mapper passed a dense delta plane")
+    k3_row = check_k3(occ, walk, end, delta, dcfg, kw["bounds_key"])[0]
+    occ_a, occ_b = occ.clone(), occ.clone()
+    k3_row["plain_ms"], k3_row["ms"] = plain_vs_kernel_ms(
+        lambda: deposit_cuda.deposit_and_sweep_ndt_reference(occ_a, walk, end, delta, dcfg),
+        lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg, **kw))
+    k3_row["device"] = device_profile(
+        lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg, **kw),
+        K3_KERNELS)
     emit({"metric": "ndt_tm_integrate_rays_per_sec", "value": TM_FRAME_RAYS / seconds,
           "unit": "rays/s", "seconds": seconds, "rays": TM_FRAME_RAYS,
           "batches": TM_FRAME_RAYS // RAYS_PER_BATCH, "miss_k": mapper.miss_k,
           "sync_voxels_s": sync_s, "observed_voxels": observed,
+          "max_memory_allocated_bytes": peak, "deposit_and_sweep_ndt": k3_row,
           "stats": {k: stats[k] for k in ("ndt_overflow", "ndt_flagged", "missed_updates")}})
 
 
@@ -2026,13 +2136,25 @@ def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
     put()
     library_ms["tsdf_set_deposit"] = (cuda_ms(put) if same_bits(wl, wb) and same_bits(dl, db)
                                       else None)
+    # Each kernel against its library calls in six alternated turns: the
+    # medians, and the turns each side won.
+    versus = {}
+    for name, kernel, library in (
+            ("gather_planes_f32", lambda: gather_cuda.gather_planes_f32(planes, ids, sentinel),
+             select),
+            ("tsdf_set_deposit",
+             lambda: deposit_cuda.tsdf_set_deposit(wb, db, dids, w, d, dsentinel), put)):
+        turns = alternated_ms({"kernel": kernel, "library": library})
+        versus[name] = {**turns, "kernel_wins": sum(
+            k < lib for k, lib in zip(turns["kernel"]["turns_ms"], turns["library"]["turns_ms"]))}
     depositing = int(mask.sum())
     bounds = {"expand_keys": k1_bound(b, cfg, with_vox=True),
               "gather_planes_f32": bound(12 * ids.numel() + 8 * distinct(ids, sentinel),
                                          2 * ids.numel()),
               "tsdf_set_deposit": bound(12 * dids.numel() + 8 * depositing, 2 * dids.numel())}
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound": bounds,
-            "records": ids.numel(), "depositing": depositing, "k1_alone_ms": k1_alone}
+            "records": ids.numel(), "depositing": depositing, "k1_alone_ms": k1_alone,
+            "versus_library": versus}
 
 
 def phase_tsdf_bench() -> dict:
@@ -2099,7 +2221,8 @@ def phase_tsdf_bench() -> dict:
           "records_per_batch": calls["records"], "depositing_per_batch": calls["depositing"],
           "kernel_ms": calls["ms"], "plain_ms": calls["plain_ms"],
           "kernel_alone_ms": {"expand_keys": calls["k1_alone_ms"]},
-          "library_ms": calls["library_ms"], "launches": launches,
+          "library_ms": calls["library_ms"], "versus_library": calls["versus_library"],
+          "launches": launches,
           "observed_voxels": observed,
           "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped",
                                           "dropped_updates")},
@@ -2108,18 +2231,30 @@ def phase_tsdf_bench() -> dict:
 
 
 WRAPPER_CALLS = 1000
+#: K2's and K3's kernels by name, for their time alone (the sum of the
+#: kernels a call launches).
+K2_KERNELS = ("run_deposit_kernel",)
+K3_KERNELS = ("end_table_kernel", "ndt_run_deposit_kernel")
 
 
-def call_cost(fn, kernel: str, calls: int) -> dict:
+def call_cost(fn, kernel, calls: int) -> dict:
     """One wrapper call's cost: host us a call over ``calls`` calls without
     a synchronize, CUDA-event ms a call over 20 back-to-back calls, and
     device_profile's kernel-alone ms (the whole call's device ms with
-    ``kernel`` empty), device ms and device operations a call."""
+    ``kernel`` empty), device ms and device operations a call; and the
+    device memory a call allocates above what was allocated before it
+    (its peak)."""
     prof = device_profile(fn, kernel)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
     return {"host_us_per_call": host_us_per_call(fn, calls), "wrapper_ms": cuda_ms(fn),
             "kernel_alone_ms": prof["kernel_ms"] if kernel else prof["device_ms"],
             "device_ms_per_call": prof["device_ms"],
-            "device_ops_per_call": prof["device_ops"]}
+            "device_ops_per_call": prof["device_ops"],
+            "peak_bytes_per_call": torch.cuda.max_memory_allocated() - before}
 
 
 def wrapper_inputs() -> dict:
@@ -2127,7 +2262,10 @@ def wrapper_inputs() -> dict:
     kernel launch: bench.py's first box batch decoded on the card (8192
     rays, seed 2024, 0.1 m voxels, 512 slots), and an NDT-OM arena (0.2 m,
     1024 slots; +inf, NaN and counts at or above 2^31) with 600,000 sorted
-    ids over 320 live slots and 40,000 sentinels."""
+    ids over 320 live slots and 40,000 sentinels; for K2, the 512-slot
+    arena and sorted ~1.1M-key stream of phase_k2; for K3, an NDT-OM arena
+    with 600,000 walk keys (a fifth masked), 8192 end keys and a sparse
+    delta, as the NDT-OM path gives it."""
     rng = np.random.default_rng(SEED)
     b, cfg = _wire_batch(box_scene_rays(RAYS_PER_BATCH, rng))
     ncfg = _ndt_config_at_bench_shape()
@@ -2135,18 +2273,22 @@ def wrapper_inputs() -> dict:
     occ, count = ndt_flag_arena(n + 1, n, rng, 10_000, 10_000)
     ids = _sorted_ids(rng, ncfg, 600_000, 40_000)
     occ, count, ids = (torch.from_numpy(x).cuda() for x in (occ, count.view(np.int32), ids))
+    k2_occ, k2_keys = _bench_arena_and_stream(cfg, rng)
+    k3_occ, walk, end, sparse, _, bounds = _ndt_arena_and_streams(ncfg, rng, n_walk=600_000)
     return {"b": b, "cfg": cfg, "occ": occ, "count": count, "ids": ids, "sentinel": n,
-            "threshold": 3}
+            "threshold": 3, "k2": (k2_occ, k2_keys, cfg),
+            "k3": (k3_occ, walk, end, sparse, ncfg, bounds)}
 
 
-def phase_wrapper_cost(expand_mod, gather_mod, inputs: dict, root: str) -> dict:
-    """call_cost of the K1 and K4 wrappers of ``expand_mod`` and
-    ``gather_mod`` (this checkout's, or another's under --wrappers-of) on
-    ``inputs``: K1 with keys, traversal and voxel planes (WRAPPER_CALLS / 5
-    calls for the host time, so that their device work does not fill the
-    launch queue); K4 on the built flag plane beside index_select; the
-    plane build + K4 (WRAPPER_CALLS / 10); and the fused flag gather where
-    the module has one."""
+def phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs: dict, root: str) -> dict:
+    """call_cost of the K1, K2, K3 and K4 wrappers of ``expand_mod``,
+    ``deposit_mod`` and ``gather_mod`` (this checkout's, or another's under
+    --wrappers-of) on ``inputs``: K1 with keys, traversal and voxel planes
+    (WRAPPER_CALLS / 5 calls for the host time, so that their device work
+    does not fill the launch queue); K2 and K3 (WRAPPER_CALLS / 10), each
+    on its own copy of its arena; K4 on the built flag plane beside
+    index_select; the plane build + K4 (WRAPPER_CALLS / 10); and the fused
+    flag gather where the module has one."""
     b, cfg = inputs["b"], inputs["cfg"]
     occ, count, ids = inputs["occ"], inputs["count"], inputs["ids"]
     n, thr = inputs["sentinel"], inputs["threshold"]
@@ -2156,6 +2298,18 @@ def phase_wrapper_cost(expand_mod, gather_mod, inputs: dict, root: str) -> dict:
         out[f"expand_keys_{name}"] = call_cost(
             lambda: expand_mod.expand_keys(b, cfg, **kw), "expand_keys_kernel",
             WRAPPER_CALLS // 5)
+
+    k2_occ, k2_keys, k2_cfg = inputs["k2"]
+    k2_occ = k2_occ.clone()
+    out["deposit_and_sweep"] = call_cost(
+        lambda: deposit_mod.deposit_and_sweep(k2_occ, k2_keys, k2_cfg), K2_KERNELS,
+        WRAPPER_CALLS // 10)
+    k3_occ, walk, end, sparse, k3_cfg, bounds = inputs["k3"]
+    k3_occ = k3_occ.clone()
+    out["deposit_and_sweep_ndt"] = call_cost(
+        lambda: deposit_mod.deposit_and_sweep_ndt(k3_occ, walk, end, sparse, k3_cfg,
+                                                  bounds_key=bounds),
+        K3_KERNELS, WRAPPER_CALLS // 10)
 
     def build_plane():
         return (~torch.isposinf(occ) & ((count >= thr) | (count < 0))).to(torch.int8)
@@ -2180,7 +2334,8 @@ def phase_wrapper_cost(expand_mod, gather_mod, inputs: dict, root: str) -> dict:
 
 def wrappers_of(root: str) -> int:
     """``--wrappers-of DIR``: the wrapper_cost line of the port in the
-    checkout at DIR (an older commit unpacked with ``git archive``, or this
+    checkout at DIR (another commit unpacked with ``git archive`` whose
+    wrappers take this one's arguments and launch its kernels, or this
     one), on inputs this checkout builds, so that one harness times two
     commits' wrappers in one call.  DIR's kernels are built in DIR."""
     inputs = wrapper_inputs()
@@ -2190,10 +2345,11 @@ def wrappers_of(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     expand_mod = importlib.import_module("ohm_tpu_torch.ops.expand_cuda")
     gather_mod = importlib.import_module("ohm_tpu_torch.ops.gather_cuda")
+    deposit_mod = importlib.import_module("ohm_tpu_torch.ops.deposit_cuda")
     if not expand_mod.__file__.startswith(os.path.abspath(root)):
         raise AssertionError(f"imported {expand_mod.__file__}, not the port under {root}")
     importlib.import_module("ohm_tpu_torch.ops._build").load()
-    phase_wrapper_cost(expand_mod, gather_mod, inputs, root)
+    phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs, root)
     return 0
 
 
@@ -2240,11 +2396,29 @@ def check_probes(found: dict) -> dict:
     return rows
 
 
+def k3_on_probe_stream(keys, occ, c: int) -> dict:
+    """K3 as the probe calls it (probe_deposit.k3_deposit) on a probe stream
+    against its plain version and a second run of itself, bit for bit; the
+    arena ``occ`` (f32[c * V]) gains its sentinel element."""
+    cfg = probe_deposit.k3_config(c)
+    occ = torch.cat([occ, torch.full((1,), float("inf"), device=occ.device)])
+    out_k = probe_deposit.k3_deposit(keys, occ.clone(), cfg)
+    out_2 = probe_deposit.k3_deposit(keys, occ.clone(), cfg)
+    none = torch.empty(0, dtype=torch.int32, device=keys.device)
+    out_p = deposit_cuda.deposit_and_sweep_ndt_reference(
+        occ.clone(), keys, none, (none, none.float()), cfg)[0]
+    torch.cuda.synchronize()
+    return {"k3_bit_identical": bool(same_bits(out_k, out_p)),
+            "k3_two_runs_identical": bool(same_bits(out_k, out_2)),
+            "k3_max_abs_err": finite_err(out_k, out_p)}
+
+
 def check_slotgrid(keys, occ_flat, c: int) -> dict:
     """The slot-grid kernel against its plain version on the card, bit for
-    bit, fused and unfused, at full size and on the edge streams; the fused
-    result against the f64 reference (f32 roundings, no gate), the scatter
-    yardstick and K3 (bit for bit)."""
+    bit, fused and unfused, at full size and on the edge streams, and K3
+    against its plain version on the same streams; the fused result against
+    the f64 reference (f32 roundings, no gate), the scatter yardstick and
+    K3 (bit for bit)."""
     n_vox = c * probe_deposit.V
     bounds = slotgrid_cuda.part_bounds(keys, c)
     rows, errs, fused = {}, [], None
@@ -2271,14 +2445,18 @@ def check_slotgrid(keys, occ_flat, c: int) -> dict:
             torch.cuda.synchronize()
             errs.append(finite_err(out_k, out_p))
             same = same and same_bits(out_k, out_p)
-        rows[f"edge_{name}"] = {"bit_identical": bool(same)}
+        k3 = k3_on_probe_stream(ek, eo, ec)
+        errs.append(k3.pop("k3_max_abs_err"))
+        rows[f"edge_{name}"] = {"bit_identical": bool(same and all(k3.values())), **k3}
     ref = probe_deposit.np_reference(keys.cpu().numpy(), occ_flat[:n_vox].cpu().numpy(), c)
     host = fused[:n_vox].cpu().numpy()
     with np.errstate(invalid="ignore"):
         worst = float(np.max(np.abs(np.nan_to_num(host - ref, posinf=0))))
     yardstick = slotgrid_cuda.scatter_deposit(keys, occ_flat, c, **probe_deposit.SWEEP)[:n_vox]
-    k3 = probe_deposit.k3_deposit(keys, occ_flat.clone(), probe_deposit.k3_config(c),
-                                  torch.zeros(n_vox, device=keys.device))[:n_vox]
+    k3 = probe_deposit.k3_deposit(keys, occ_flat.clone(), probe_deposit.k3_config(c))[:n_vox]
+    k3_full = k3_on_probe_stream(keys, occ_flat[:n_vox], c)
+    errs.append(k3_full.pop("k3_max_abs_err"))
+    rows["k3"] = {"bit_identical": bool(all(k3_full.values())), **k3_full}
     parts = bounds[1:] - bounds[:-1]
     row = {"keys": keys.numel(), "slots": c, "touched_voxels": distinct(keys >> 1, n_vox),
            "largest_part_records": int(parts.max()), "live_parts": int((parts > 0).sum()),
@@ -2339,11 +2517,11 @@ def phase_p() -> dict:
     counts_ms = cuda_ms(lambda: slotgrid_cuda.slotgrid_deposit(keys, occ_k, bounds,
                                                                fuse_sweep=False, **sweep))
     with_bounds_ms = cuda_ms(lambda: probe_deposit.deposit(keys, occ_k, c))
-    cfg, delta = probe_deposit.k3_config(c), torch.zeros(n_vox, device=keys.device)
+    cfg = probe_deposit.k3_config(c)
     occ_3 = occ_flat.clone()
     scatter_ms, k3_ms = plain_vs_kernel_ms(
         lambda: slotgrid_cuda.scatter_deposit(keys, occ_flat, c, **sweep),
-        lambda: probe_deposit.k3_deposit(keys, occ_3, cfg, delta))
+        lambda: probe_deposit.k3_deposit(keys, occ_3, cfg))
     onehot_ms = cuda_ms(lambda: slotgrid_cuda.onehot_deposit(keys, occ_flat[:n_vox], c, **sweep),
                         reps=5)
     touched = grid["touched_voxels"]
@@ -2407,7 +2585,7 @@ def main(argv=None) -> int:
     k1_vox = phase_k1_vox(k1)
     k3 = phase_k3()
     k4 = phase_k4()
-    wrappers = phase_wrapper_cost(expand_cuda, gather_cuda, wrapper_inputs(), REPO)
+    wrappers = phase_wrapper_cost(expand_cuda, gather_cuda, deposit_cuda, wrapper_inputs(), REPO)
     k4_flags = phase_k4_flags()
     phase_ndt_hardware_differential()
     ndt = phase_ndt_om_bench()
@@ -2460,9 +2638,18 @@ def main(argv=None) -> int:
             max(k2["max_abs_err"], layers["max_abs_err"]["deposit_and_sweep"],
                 outdoor["max_abs_err"]["deposit_and_sweep"]),
             layers_launches=layers["launches"]["deposit_and_sweep"],
-            outdoor_mean_launches=outdoor["launches"]["deposit_and_sweep"]),
+            outdoor_mean_launches=outdoor["launches"]["deposit_and_sweep"],
+            kernel_alone_ms=bench["k2_device"]["kernel_ms"],
+            device_ops_per_call=bench["k2_device"]["device_ops"],
+            wrapper_cost=wrappers["deposit_and_sweep"]),
         row("deposit_and_sweep_ndt", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:449", ndt,
-            max(k3["max_abs_err"], ndt["max_abs_err"]["deposit_and_sweep_ndt"])),
+            max(k3["max_abs_err"], ndt["max_abs_err"]["deposit_and_sweep_ndt"]),
+            kernel_alone_ms=ndt["k3_device"]["kernel_ms"],
+            device_ms_per_call=ndt["k3_device"]["device_ms"],
+            device_ops_per_call=ndt["k3_device"]["device_ops"],
+            design_bound_ms=ndt["k3_design_bound"]["bound_ms"],
+            design_bound_bytes=ndt["k3_design_bound"]["bound_bytes"],
+            wrapper_cost=wrappers["deposit_and_sweep_ndt"]),
         # K4 on the NDT-OM path's arguments (the flag plane built from the
         # arena it captured); no mapper path launches it since the fused
         # flag gather below took its place.
@@ -2484,9 +2671,11 @@ def main(argv=None) -> int:
             flag_gathers_ms=ndt["flag_gather"]["wrapper_ms"],
             flag_gathers_device_ms_alone=ndt["flag_gather"]["device_ms_alone"]),
         row("gather_planes_f32", "gather.cu", "ohm_tpu/ops/deposit_pallas.py:598", tsdf,
-            max(k5["max_abs_err"], tsdf["max_abs_err"]["gather_planes_f32"])),
+            max(k5["max_abs_err"], tsdf["max_abs_err"]["gather_planes_f32"]),
+            versus_library=tsdf["versus_library"]["gather_planes_f32"]),
         row("tsdf_set_deposit", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:726", tsdf,
-            max(k6["max_abs_err"], tsdf["max_abs_err"]["tsdf_set_deposit"])),
+            max(k6["max_abs_err"], tsdf["max_abs_err"]["tsdf_set_deposit"]),
+            versus_library=tsdf["versus_library"]["tsdf_set_deposit"]),
         # P's path is the deposit probe's own entry point.
         row("deposit_probes", "probes.cu", "scripts/probe_deposit.py:114", p,
             p["max_abs_err"]["deposit_probes"], probe_launches=p["probe_launches"],

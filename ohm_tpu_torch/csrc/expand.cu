@@ -29,8 +29,8 @@
 // in XLA before its kernel): it reads the unpacked batch's own tensors
 // (ops.wire.unpack_batch; start_frac, direction and length as row-strided
 // views of the wire's float block), threads 0-2 of each block compute their
-// axis's sign, IEEE 1/direction (+-3.0e38 where direction is 0, 0 where
-// the length is not positive), e0 = (wall - start_frac) * inv, dd =
+// axis's sign, IEEE 1/direction (+-3.0e38 where direction is 0 or denormal,
+// which XLA's comparisons read as 0; 0 where the length is not positive), e0 = (wall - start_frac) * inv, dd =
 // |res * inv|, the crossings, step, n_ax and 1/dd into shared memory, and
 // the first block of each ray writes its overflow flag and the end voxel's
 // enter time, max over the axes of e0 + (n_ax - 1) * dd (0 where n_ax is
@@ -65,6 +65,7 @@ namespace {
 constexpr int kBlock = 128;
 constexpr int kMaxK = 32;  // ohm_tpu_torch/ops/expand_cuda.py MAX_K
 constexpr float kBig = 3.0e38f;  // ops.ddawalk._BIG, "infinite" time
+constexpr float kTiny = 1.17549435e-38f;  // ops.ddawalk._TINY, FLT_MIN
 static_assert(kBlock == 128 && kMaxK <= 32, "the set-up's loads take four warps");
 
 __device__ __forceinline__ int masked_bits(float t) {
@@ -134,9 +135,11 @@ __global__ void __launch_bounds__(kBlock) expand_keys_kernel(
     const int s = start_abs[(size_t)ray * 3 + a];
     const int e = end_abs[(size_t)ray * 3 + a];
     const bool ray_valid = valid[ray] != 0;
-    const bool sign = d < 0.0f;
-    // inv: IEEE 1/d; +-3.0e38 where d == 0; 0 where the length is not > 0.
-    float inv = d != 0.0f ? __fdiv_rn(1.0f, d) : (sign ? -kBig : kBig);
+    // A denormal component compares as zero, as under XLA (NaN does not).
+    const bool normal = !(fabsf(d) < kTiny);
+    const bool sign = d < 0.0f && normal;
+    // inv: IEEE 1/d; +-3.0e38 where d reads as 0; 0 where the length is not > 0.
+    float inv = d != 0.0f && normal ? __fdiv_rn(1.0f, d) : (sign ? -kBig : kBig);
     if (!(len > 0.0f)) inv = 0.0f;
     const float half = __fmul_rn(0.5f, res);
     const float e0 = __fmul_rn(__fsub_rn(sign ? -half : half, frac), inv);

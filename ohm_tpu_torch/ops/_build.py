@@ -44,16 +44,15 @@ _SIGNATURES = {
     # end_enter, B, S, K, shift, v, sentinel, exclude_origin, stream
     "ohm_expand_keys": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F,
                         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # occupancy, keys, n_keys, hit, miss, n_vox, flags, hit_value,
-    # miss_value, threshold, min_value, max_value, saturation_min,
-    # saturation_max, touched, stream
-    "ohm_deposit_and_sweep": [_P, _P, _I, _P, _P, _I, _I,
-                              _F, _F, _F, _F, _F, _F, _F, _P, _P],
-    # occupancy, walk_keys, n_walk, end_keys, n_end, dkeys (or null), dvals,
-    # n_delta, delta plane, hit, miss, n_vox, hit_value, miss_value,
-    # min_value, max_value, saturation_min, saturation_max, touched, stream
-    "ohm_deposit_and_sweep_ndt": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I,
-                                  _F, _F, _F, _F, _F, _F, _P, _P],
+    # occupancy, sorted keys, n_keys, n_vox, flags, hit_value, miss_value,
+    # threshold, min_value, max_value, saturation_min, saturation_max,
+    # touched, stream
+    "ohm_deposit_and_sweep": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    # occupancy, walk, bounds, n_walk, end_keys, n_end, scratch, log2_slots,
+    # dkeys, dvals (or the plane), n_delta, dense, n_vox, hit_value,
+    # miss_value, min_value, max_value, saturation_min, saturation_max, stream
+    "ohm_deposit_and_sweep_ndt": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                  _F, _F, _F, _F, _F, _F, _P],
     # plane, ids, n, sentinel, out, stream
     "ohm_gather_plane": [_P, _P, _I, _I, _P, _P],
     # occupancy, mean_count, ids, n, threshold, sentinel, out, stream

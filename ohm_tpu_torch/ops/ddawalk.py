@@ -23,6 +23,9 @@ import torch
 
 # "Infinite" time: a large finite value, as in the reference.
 _BIG = float(np.float32(3.0e38))
+#: The smallest normal f32.  XLA's CPU backend and the TPU compare with
+#: denormals flushed to zero, so a smaller direction component reads as 0.
+_TINY = float(np.finfo(np.float32).tiny)
 
 
 def f32(x: float) -> float:
@@ -46,12 +49,17 @@ def init_walk(start_frac, direction, length, start_abs, end_abs, resolution):
     """Per-ray walk set-up (ohm/LineWalkCompute.h:188-280): times are
     distances from the start point along the ray, in f32.
 
+    A direction component below the smallest normal f32 in magnitude reads
+    as zero (sign False, inverse +_BIG), as the reference's comparisons
+    read it under XLA.
+
     Returns (sign bool[B,3], initial_exit f32[B,3], step_delta f32[B,3],
     crossings i32[B,3])."""
     res = f32(resolution)
     half = float(np.float32(0.5) * np.float32(resolution))
-    sign = direction < 0
-    nonzero = direction != 0
+    normal = ~(torch.abs(direction) < _TINY)  # NaN stays nonzero, as in the reference
+    sign = (direction < 0) & normal
+    nonzero = (direction != 0) & normal
     safe = torch.where(nonzero, direction, torch.ones_like(direction))
     inv = torch.where(nonzero, torch.ones_like(safe) / safe,
                       torch.where(sign, -_BIG, _BIG).to(direction.dtype))

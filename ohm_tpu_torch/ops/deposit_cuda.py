@@ -7,18 +7,21 @@ Replaces ``ohm_tpu/ops/deposit_pallas.py`` ``deposit_and_sweep``
 ``csrc/deposit.cu``; the plain PyTorch version is
 ``deposit_and_sweep_reference`` (int32 ``index_add_`` counts + ``sweep``).
 
-The counts are integers, so an atomic per-voxel deposit is exact in any
-order (ohm itself deposits with per-voxel atomics, ohmgpu/gpu/
-RegionUpdate.cl:403-470).  The sweep replays the reference's f32 op order
-(deposit_pallas.py:57-95 = integrate.py:625-663) against the batch-start
-values; voxels without records keep their value, so sweeping the whole
-arena is exact.  Unobserved voxels hold -0.0.
+The kernel reads a key stream sorted ascending, as the TPU kernel's
+``key_sorted`` is: a voxel's counts are then the lengths of two adjacent
+runs, which the record that ends the run reads off positions, with no count
+plane and no atomic.  It updates each touched voxel in the reference's f32
+op order (deposit_pallas.py:57-95 = integrate.py:625-663) against its
+batch-start value; voxels without records are neither read nor written.
+Unobserved voxels hold -0.0.
 
 K3 replaces ``deposit_pallas.py`` ``deposit_and_sweep_ndt`` (``_deposit_core``
 with ``key2_sorted`` and ``delta_stream``, ``_ndt_sweep_block``); its plain
-version is ``deposit_and_sweep_ndt_reference``.  Two key streams deposit
-into the same count planes, a per-voxel f32 miss delta joins the total, and
-the sweep (``ndt_sweep``) marks unobserved as +inf and has no exclude flags.
+version is ``deposit_and_sweep_ndt_reference``.  The kernel reads the
+walk stream's runs as K2 reads its stream (with the reference's bounds
+stream, the walk unmasked), counts the end keys into a small table, and
+a per-voxel f32 miss delta joins the total; the update (``ndt_sweep``)
+marks unobserved as +inf and has no exclude flags.
 
 K6 (``tsdf_set_deposit``) replaces ``deposit_pallas.py`` ``tsdf_set_deposit``;
 its plain version is ``tsdf_set_deposit_reference``.  It sets the TSDF
@@ -92,8 +95,10 @@ def deposit_and_sweep_reference(occupancy, key_sorted, cfg: IntegrateConfig):
 def deposit_and_sweep(occupancy, key_sorted, cfg: IntegrateConfig):
     """Deposit the (flat << 1 | hit) key stream and sweep ``occupancy``
     (f32[>= sentinel + 1], updated in place; the sentinel element and
-    anything beyond are never written).  Keys with flat >= sentinel are
-    skipped; the kernel does not need them sorted.
+    anything beyond are never written).  The keys must be sorted ascending
+    (the kernel reads each voxel's counts off its run; the plain version
+    takes any order).  Keys whose flat lies outside [0, sentinel) are
+    skipped.
 
     Returns (occupancy, touched i32 0-dim)."""
     if occupancy.device.type == "cpu":
@@ -104,14 +109,10 @@ def deposit_and_sweep(occupancy, key_sorted, cfg: IntegrateConfig):
     if not (key_sorted.dtype == torch.int32 and key_sorted.dim() == 1
             and key_sorted.is_contiguous() and key_sorted.device == occupancy.device):
         raise ValueError("keys must be a contiguous i32[N] tensor on the arena's device")
-    n_vox = cfg.sentinel
-    dev = occupancy.device
-    hit = torch.zeros(n_vox, dtype=torch.int32, device=dev)
-    miss = torch.zeros(n_vox, dtype=torch.int32, device=dev)
-    touched = torch.zeros(1, dtype=torch.int32, device=dev)
+    touched = torch.empty(1, dtype=torch.int32, device=occupancy.device)
     rc = _build.load().ohm_deposit_and_sweep(
         occupancy.data_ptr(), key_sorted.data_ptr(), key_sorted.shape[0],
-        hit.data_ptr(), miss.data_ptr(), n_vox, int(cfg.ray_flags),
+        cfg.sentinel, int(cfg.ray_flags),
         cfg.hit_value, cfg.miss_value, cfg.occupancy_threshold,
         cfg.min_value, cfg.max_value, cfg.saturation_min, cfg.saturation_max,
         touched.data_ptr(), _build.stream_of(occupancy))
@@ -187,13 +188,24 @@ def _check_stream(keys, dev, what):
         raise ValueError(f"{what} must be a contiguous i32[N] tensor on the arena's device")
 
 
-def deposit_and_sweep_ndt(occupancy, walk_keys, end_keys, delta, cfg: IntegrateConfig):
-    """Deposit the walk and end/sample (flat << 1 | hit) key streams (any
-    order; flat >= sentinel skipped) and sweep ``occupancy``
-    (f32[>= sentinel + 1], +inf unobserved, updated in place) with the miss
-    delta: either a sparse (keys i32[Nd] = flat << 1, vals f32[Nd]) stream
-    holding at most one record with nonzero bits per voxel (NDT-OM), or a
-    dense f32[>= sentinel] plane (NDT-TM).
+def deposit_and_sweep_ndt(occupancy, walk_keys, end_keys, delta, cfg: IntegrateConfig,
+                          bounds_key=None):
+    """Deposit the walk and end/sample (flat << 1 | hit) key streams (flat
+    outside [0, sentinel) skipped) and sweep ``occupancy`` (f32[>= sentinel
+    + 1], +inf unobserved, updated in place) with the miss delta: either a
+    sparse (keys i32[Nd] = flat << 1, vals f32[Nd]) stream sorted by id,
+    with at most one value with nonzero bits per voxel, at the voxel's last
+    record (the reference's contract, and the mappers'), or a dense
+    f32[>= sentinel] plane (no mapper passes one).
+
+    The end keys may come in any order.  The walk keys may too, unless
+    ``bounds_key`` is given: the walk stream unmasked, sorted ascending,
+    where ``walk_keys`` is the same stream with some records masked to
+    the sentinel key, and within each voxel's run those masked records
+    come first (the NDT miss phase masks the first records of a flagged
+    voxel, ops.integrate_ndt).  Without it the wrapper sorts the walk keys
+    (an unstable sort: the keys carry no payload; masked records go to the
+    back).  The plain version reads the walk keys alone.
 
     Returns (occupancy, touched i32 0-dim: voxels with counts)."""
     if occupancy.device.type == "cpu":
@@ -204,6 +216,11 @@ def deposit_and_sweep_ndt(occupancy, walk_keys, end_keys, delta, cfg: IntegrateC
     dev = occupancy.device
     _check_stream(walk_keys, dev, "walk keys")
     _check_stream(end_keys, dev, "end keys")
+    if bounds_key is None:
+        walk_keys = bounds_key = torch.sort(walk_keys).values
+    _check_stream(bounds_key, dev, "bounds keys")
+    if bounds_key.shape != walk_keys.shape:
+        raise ValueError("the bounds stream must be as long as the walk stream")
     n_vox = cfg.sentinel
     if isinstance(delta, tuple):
         dkeys, dvals = delta
@@ -211,26 +228,25 @@ def deposit_and_sweep_ndt(occupancy, walk_keys, end_keys, delta, cfg: IntegrateC
         if not (dvals.dtype == torch.float32 and dvals.shape == dkeys.shape
                 and dvals.is_contiguous() and dvals.device == dev):
             raise ValueError("delta values must be a contiguous f32 tensor like its keys")
-        plane = torch.zeros(n_vox, dtype=torch.float32, device=dev)
-        dk, dv, n_delta = dkeys.data_ptr(), dvals.data_ptr(), dkeys.shape[0]
+        dk, dv, n_delta, dense = dkeys.data_ptr(), dvals.data_ptr(), dkeys.shape[0], 0
     else:
         if not (delta.dtype == torch.float32 and delta.dim() == 1
                 and delta.is_contiguous() and delta.shape[0] >= n_vox
                 and delta.device == dev):
             raise ValueError("the delta plane must be a contiguous f32[>= sentinel] tensor")
-        plane, dk, dv, n_delta = delta, None, None, 0
-    hit = torch.zeros(n_vox, dtype=torch.int32, device=dev)
-    miss = torch.zeros(n_vox, dtype=torch.int32, device=dev)
-    touched = torch.zeros(1, dtype=torch.int32, device=dev)
+        dk, dv, n_delta, dense = None, delta.data_ptr(), 0, 1
+    # The end keys' table: at least two slots a key, a power of two; the
+    # touched count in front of it.
+    log2_slots = max(1, (2 * end_keys.shape[0] - 1).bit_length())
+    scratch = torch.empty(1 + 3 * (1 << log2_slots), dtype=torch.int32, device=dev)
     rc = _build.load().ohm_deposit_and_sweep_ndt(
-        occupancy.data_ptr(), walk_keys.data_ptr(), walk_keys.shape[0],
-        end_keys.data_ptr(), end_keys.shape[0], dk, dv, n_delta, plane.data_ptr(),
-        hit.data_ptr(), miss.data_ptr(), n_vox, cfg.hit_value, cfg.miss_value,
-        cfg.min_value, cfg.max_value, cfg.saturation_min, cfg.saturation_max,
-        touched.data_ptr(), _build.stream_of(occupancy))
+        occupancy.data_ptr(), walk_keys.data_ptr(), bounds_key.data_ptr(), walk_keys.shape[0],
+        end_keys.data_ptr(), end_keys.shape[0], scratch.data_ptr(), log2_slots,
+        dk, dv, n_delta, dense, n_vox, cfg.hit_value, cfg.miss_value, cfg.min_value,
+        cfg.max_value, cfg.saturation_min, cfg.saturation_max, _build.stream_of(occupancy))
     _build.check(rc, "deposit_and_sweep_ndt")
     deposit_and_sweep_ndt.launches += 1
-    return occupancy, touched[0]
+    return occupancy, scratch[0]
 
 
 #: Kernel launches since the count was last set to 0.

@@ -17,7 +17,8 @@ with its expand and deposit kernels):
              batch covariance merge; for NDT-TM the consistency tallies, the
              exact intensity recursion and the hit/miss counters
   deposit    K3 (ops.deposit_cuda.deposit_and_sweep_ndt): the standard
-             counts of both streams and the miss delta, swept in place
+             counts of both streams (the walk with its unmasked bounds)
+             and the sparse miss delta, swept in place
 
 The arena is a dict of layer tensors (mapping.arena.VoxelArena.layers),
 updated in place; the hit phase reads the batch-start occupancy, so K3 runs
@@ -158,16 +159,14 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
     sids, ndt_applied, ids_k, k_last, k_red, stats = _miss_phase(
         arena, b, ids_c, pos_c, aux["vox"], S, cfg)
     k_write = k_last & (ids_k != sentinel)
+    # Sparse delta stream (NDT-OM and NDT-TM): id-sorted, one nonzero value
+    # per voxel, at its last record.
+    pending_delta = (ids_k << 1,
+                     torch.where(k_write, k_red[:, 0], torch.zeros_like(k_red[:, 0])))
     if cfg.ndt_tm:
-        n = arena["occupancy"].shape[0]
-        pending_delta = torch.zeros(n, dtype=torch.float32, device=dev)
-        _store(pending_delta, ids_k, k_write, k_red[:, 0], sentinel)
-        pending_tm_miss = torch.zeros(n, dtype=torch.float32, device=dev)
+        pending_tm_miss = torch.zeros(arena["occupancy"].shape[0], dtype=torch.float32,
+                                      device=dev)
         _store(pending_tm_miss, ids_k, k_write, k_red[:, 1], sentinel)
-    else:
-        # Sparse delta stream: one nonzero value per voxel, at its last record.
-        pending_delta = (ids_k << 1,
-                         torch.where(k_write, k_red[:, 0], torch.zeros_like(k_red[:, 0])))
 
     _hit_phase(arena, b, end_flat, end_is_hit, cfg)
     if cfg.ndt_tm:
@@ -175,13 +174,18 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
 
     # Standard misses (walk records the NDT math did not take) and the
     # end/sample records deposit with the miss delta; the sweep runs last
-    # because the hit phase reads batch-start occupancy.
+    # because the hit phase reads batch-start occupancy.  The walk stream
+    # goes with its unmasked bounds: within a voxel's run of ``sids`` the
+    # records the NDT math took come first (the flag is the voxel's, and
+    # ``rank_f`` grows along the run), so the masked records form a prefix,
+    # as K3 needs.
     std_miss = (sids != sentinel) & ~ndt_applied
-    walk_keys = torch.where(std_miss, sids << 1, torch.full_like(sids, sentinel << 1))
+    bounds = sids << 1
+    walk_keys = torch.where(std_miss, bounds, torch.full_like(sids, sentinel << 1))
     end_keys = ((torch.where(end_any, end_flat, torch.full_like(end_flat, sentinel)) << 1)
                 | end_is_hit.to(torch.int32))
     _, touched = deposit_cuda.deposit_and_sweep_ndt(
-        arena["occupancy"], walk_keys, end_keys, pending_delta, base)
+        arena["occupancy"], walk_keys, end_keys, pending_delta, base, bounds_key=bounds)
 
     stats.update({
         "missed_updates": walk_missed_n + (end_any & end_missed).sum(),

@@ -179,12 +179,14 @@ def deposit(keys: torch.Tensor, occ: torch.Tensor, c: int = C) -> torch.Tensor:
     return slotgrid_deposit(keys, occ, part_bounds(keys, c), **SWEEP)
 
 
-def k3_deposit(keys: torch.Tensor, occ: torch.Tensor, cfg: IntegrateConfig,
-               delta: torch.Tensor) -> torch.Tensor:
-    """The production NDT deposit on this stream: ``keys`` as the walk
-    stream, no end keys, the zero delta plane ``delta``; in place."""
-    no_keys = torch.empty(0, dtype=torch.int32, device=keys.device)
-    return deposit_cuda.deposit_and_sweep_ndt(occ, keys, no_keys, delta, cfg)[0]
+def k3_deposit(keys: torch.Tensor, occ: torch.Tensor, cfg: IntegrateConfig) -> torch.Tensor:
+    """The production NDT deposit on this stream, as the mappers call it:
+    ``keys`` (sorted) as the walk stream and its bounds, no end keys, an
+    empty sparse delta; in place."""
+    none = torch.empty(0, dtype=torch.int32, device=keys.device)
+    no_delta = (none, torch.empty(0, dtype=torch.float32, device=keys.device))
+    return deposit_cuda.deposit_and_sweep_ndt(occ, keys, none, no_delta, cfg,
+                                              bounds_key=keys)[0]
 
 
 def largest_count(keys: torch.Tensor, c: int = C) -> int:
@@ -291,14 +293,13 @@ def run(device="cuda", stages=STAGES, n: int = N, c: int = C, live: int = LIVE,
         mism = int(np.sum(sc[:n_vox].cpu().numpy() != ref))
         print(f"  [scatter] vs f64 reference: mismatches={mism}")
         cfg = k3_config(c)
-        delta = torch.zeros(n_vox, dtype=torch.float32, device=dev)
-        k3 = k3_deposit(keys, occ_flat.clone(), cfg, delta)
+        k3 = k3_deposit(keys, occ_flat.clone(), cfg)
         bits = bit_mismatches(k3[:n_vox], sc[:n_vox])
         print(f"  [k3] vs f32 scatter path: bit mismatches={bits} "
               f"(largest count {out['largest_count']}; K3 caps at 65535)")
         scatter_ms = report("scatter", lambda: scatter_deposit(keys, occ_flat, c, **SWEEP))
         occ = occ_flat.clone()
-        k3_ms = report("k3", lambda: k3_deposit(keys, occ, cfg, delta))
+        k3_ms = report("k3", lambda: k3_deposit(keys, occ, cfg))
         out["scatter"] = {"mismatches_f64": mism, "ms": scatter_ms,
                           "k3_bit_mismatches_scatter": bits, "k3_ms": k3_ms}
         ok = ok and bits == 0

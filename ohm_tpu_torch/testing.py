@@ -30,7 +30,8 @@ def edge_rays(b: dict, cfg) -> None:
     place, in the wire's own strided views) reach the expand kernel's edge
     cases: rays 0-15 start on the voxel wall they leave (e0 = +-0), 16-23
     have zero length, 24-31 carry a denormal direction component on an axis
-    they cross once (1/d = inf: a NaN enter time), 32-39 are invalid, and
+    they cross once (read as zero, as XLA reads it: inv = 3e38; 24-27 start
+    on the wall, e0 = 0), 32-39 are invalid, and
     40-47 cross more than S walls on an axis."""
     half = float(np.float32(0.5) * np.float32(cfg.resolution))
     b["start_frac"][:16] = torch.where(b["direction"][:16] < 0, -half, half)
@@ -57,3 +58,156 @@ def dispatched_ops(fn) -> list:
     with Log():
         fn()
     return ops
+
+
+#: Streams at the edges of the run-length deposits (K2, K3).
+DEPOSIT_EDGE_STREAMS = ("long_run", "block_edges", "empty", "all_sentinel", "negative")
+#: K3's streams: K2's, and the cases of its second stream and its delta.
+NDT_EDGE_STREAMS = DEPOSIT_EDGE_STREAMS + ("end_only", "delta_only", "neg_zero_delta",
+                                           "delta_last")
+
+
+def _runs(name: str, sentinel: int, rng) -> list:
+    """(flat, misses, hits) runs, ascending by flat, of a stream of
+    DEPOSIT_EDGE_STREAMS (empty for "empty" and "all_sentinel"):
+
+      long_run      70,000 misses on one voxel, 65,600 hits on the next,
+                    65,536 misses and 3 hits on a third (counts cap at 65535)
+      block_edges   ~60 runs of 1 to 1,030 records, misses then hits, whose
+                    run and hit/miss boundaries cross multiples of 256 and 1024
+      negative      voxels with flat -2^29, -77 and -1 (skipped), then
+                    block_edges' runs
+    with 40 short runs of up to 5 records beside them (and alone for K3's
+    own cases)."""
+    if name in ("empty", "all_sentinel"):
+        return []
+    runs = []
+    if name == "long_run":
+        runs += [(10, 70_000, 0), (11, 0, 65_600), (12, 65_536, 3)]
+    if name in ("block_edges", "negative"):
+        if name == "negative":
+            runs += [(-(1 << 29), 5, 2), (-77, 300, 0), (-1, 0, 1)]
+        lengths = [1, 2, 3, 127, 254, 255, 256, 257, 511, 769, 1023, 1024, 1025, 1030]
+        flat = 40
+        for _ in range(60):
+            n = int(rng.choice(lengths))
+            hits = int(rng.integers(0, n + 1)) if rng.random() < 0.6 else 0
+            runs.append((flat, n - hits, hits))
+            flat += int(rng.integers(1, 4))
+    start = max((r[0] for r in runs), default=0) + 1
+    spread = rng.choice(np.arange(start, sentinel), 40, replace=False)
+    runs += [(int(f), int(rng.integers(0, 4)), int(rng.integers(1, 3))) for f in np.sort(spread)]
+    return runs
+
+
+def _keys(runs) -> np.ndarray:
+    """The sorted (flat << 1 | hit) keys of (flat, misses, hits) runs."""
+    parts = [np.zeros(0, np.int64)]
+    for flat, misses, hits in runs:
+        parts += [np.full(misses, flat << 1), np.full(hits, (flat << 1) | 1)]
+    return np.sort(np.concatenate(parts)).astype(np.int32)
+
+
+def deposit_edge_stream(name: str, sentinel: int, seed: int = 0) -> np.ndarray:
+    """K2's key stream for ``name`` (DEPOSIT_EDGE_STREAMS), sorted i32: the
+    runs of ``_runs``, then 100 sentinel records (both key parities; 3,000
+    and nothing else for "all_sentinel"; none for "empty")."""
+    rng = np.random.default_rng(seed)
+    keys = _keys(_runs(name, sentinel, rng))
+    if name != "empty":
+        n = 3000 if name == "all_sentinel" else 100
+        tail = (np.int64(sentinel) << 1) | (np.arange(n) & 1)
+        keys = np.sort(np.concatenate([keys, tail])).astype(np.int32)
+    return keys
+
+
+def ndt_edge_streams(name: str, sentinel: int, seed: int = 0) -> dict:
+    """K3's streams for ``name`` (NDT_EDGE_STREAMS), as numpy arrays:
+
+      walk    ascending (flat << 1) miss ids where each voxel's first records
+              (a random prefix, as the NDT miss phase's Gaussian-applied
+              ones) are masked to the sentinel, then sentinel ids
+      bounds  the same ids unmasked (the reference kernel's bounds stream)
+      end     the end/sample keys (hits and misses), sorted
+      dkeys, dvals
+              the sparse miss delta: (flat << 1, value) records sorted by
+              id, one value per voxel at its last record, zero-valued
+              records before it, some values zero, a sentinel tail
+      plane   the same delta as a dense f32 plane [sentinel + 1]
+
+    The cases beyond K2's: "end_only" voxels whose only records are end
+    keys (hits only, misses only, both); "delta_only" voxels with a delta
+    and every walk record masked, or no record at all; "neg_zero_delta"
+    -0.0 and +0.0 deltas on voxels with and without records; "delta_last"
+    a voxel's value at its last delta record behind 5 zero-valued ones."""
+    rng = np.random.default_rng(seed)
+    runs = _runs(name, sentinel, rng)
+    sent = np.int64(sentinel)
+    walk_runs = [(f, m + h) for f, m, h in runs if m + h > 0]
+    end_runs = []
+    if name in ("long_run", "block_edges", "negative"):
+        # A third of the voxels' records come as end keys, the hits among them.
+        walk_runs = [(f, m) for f, m, h in runs if m > 0]
+        end_runs = [(f, 0, h) for f, m, h in runs if h > 0]
+    lo = max([f for f, _ in walk_runs] + [0]) + 10
+    extra = {}  # voxel -> delta value (f32) for the delta cases
+    if name == "end_only":
+        end_runs += [(lo, 0, 4), (lo + 1, 3, 0), (lo + 2, 2, 5)]
+    elif name == "delta_only":
+        walk_runs.append((lo, 7))  # every record masked below
+        extra = {lo: -0.5, lo + 1: 0.25}
+    elif name == "neg_zero_delta":
+        walk_runs += [(lo, 2), (lo + 1, 3)]
+        extra = {lo: -0.0, lo + 1: 0.0, lo + 2: -0.0, lo + 3: 0.0}
+    elif name == "delta_last":
+        walk_runs.append((lo, 4))
+        extra = {lo: -0.375}
+    ids = np.sort(np.concatenate([np.zeros(0, np.int64)]
+                                 + [np.full(n, f, np.int64) for f, n in walk_runs]))
+    masked = np.zeros(ids.size, bool)
+    for f, n in walk_runs:
+        at = np.searchsorted(ids, f)
+        k = n if (name == "delta_only" and f == lo) else int(rng.integers(0, n + 1) // 2)
+        if n > 65_535:  # the long runs keep a count above the cap
+            k = min(k, n - 65_536)
+        masked[at:at + k] = True
+    if name != "empty":
+        ids = np.concatenate([ids, np.full(64, sent)])
+        masked = np.concatenate([masked, np.zeros(64, bool)])
+    if name == "all_sentinel":
+        ids, masked = np.full(3000, sent), np.zeros(3000, bool)
+    bounds = ids << 1
+    walk = np.where(masked, sent << 1, bounds)
+    end = _keys(end_runs).astype(np.int64)
+    if name == "all_sentinel":
+        end = (sent << 1) | (np.arange(500) & 1)
+    elif name != "empty":
+        end = np.concatenate([end, (sent << 1) | (np.arange(20) & 1)])
+
+    # The delta: a value on a fifth of the walk's voxels (some 0), and the
+    # cases' own voxels, each at its last record behind zero-valued ones.
+    real = np.unique(ids[(ids >= 0) & (ids < sentinel)])
+    chosen = real[rng.random(real.size) < 0.2] if real.size else real
+    values = dict(zip(chosen.tolist(), rng.normal(0.0, 0.5, chosen.size).astype(np.float32)))
+    for f in chosen[: max(1, chosen.size // 8)].tolist():
+        values[f] = np.float32(0.0)
+    values.update({f: np.float32(v) for f, v in extra.items()})
+    dkeys, dvals = [], []
+    for f in sorted(values):
+        zeros = 5 if name == "delta_last" and f == lo else int(rng.integers(0, 3))
+        dkeys += [f] * (zeros + 1)
+        dvals += [np.float32(0.0)] * zeros + [values[f]]
+    if name == "negative":
+        dkeys, dvals = [-77, -1] + dkeys, [np.float32(0.5), np.float32(-0.5)] + dvals
+    if name == "all_sentinel":
+        dkeys, dvals = [], []
+    if name != "empty":
+        dkeys, dvals = dkeys + [sentinel] * 17, dvals + [np.float32(0.0)] * 17
+    dkeys = np.asarray(dkeys, np.int64)
+    dvals = np.asarray(dvals, np.float32).reshape(-1)
+    plane = np.zeros(sentinel + 1, np.float32)
+    live = (dkeys >= 0) & (dkeys < sentinel) & (dvals.view(np.uint32) != 0)
+    plane[dkeys[live]] = dvals[live]
+    return {"walk": walk.astype(np.int32), "bounds": bounds.astype(np.int32),
+            "end": np.sort(end).astype(np.int32), "dkeys": (dkeys << 1).astype(np.int32),
+            "dvals": dvals, "plane": plane}

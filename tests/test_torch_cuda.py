@@ -9,8 +9,11 @@ deposit (on the probe's bench-shaped stream and its edge streams) bit for
 bit, the slot-grid deposit and K3 equal to the scatter yardstick; the
 expand kernel's in-kernel prelude (overflow, the end voxel's enter time)
 against the plain prelude on every wire layout and on edge rays; the fused
-NDT flag gather against its plain version at the NDT-OM arena; and the
-K1 and K4 wrappers issuing no PyTorch op but their outputs' allocations.
+NDT flag gather against its plain version at the NDT-OM arena; the
+run-length deposits K2 and K3 on the streams their design makes risky
+(ohm_tpu_torch.testing's edge streams), bit for bit and the same bits on a
+second run; and the K1, K2 and K4 wrappers issuing no PyTorch op but their
+outputs' allocations.
 TorchNdtMap, TorchTsdfMap and
 TorchRayMapper with the side layers on the card must agree with themselves
 on the CPU and give the same bits on every run.
@@ -44,7 +47,8 @@ from ohm_tpu_torch.ops.slotgrid_cuda import (part_bounds, scatter_deposit, slotg
                                              slotgrid_deposit_reference)
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit as pd
-from ohm_tpu_torch.testing import dispatched_ops, edge_rays, ndt_flag_arena
+from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, deposit_edge_stream,
+                                   dispatched_ops, edge_rays, ndt_edge_streams, ndt_flag_arena)
 
 pytestmark = pytest.mark.cuda
 
@@ -105,6 +109,62 @@ def test_deposit_kernel_matches_plain(bench_batch, flags):
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), ref_out.view(torch.int32))
     assert int(touched) == int(ref_touched) > 0
+
+
+def _arena(cfg, device, unobserved, seed):
+    """A batch-start arena of ``cfg.sentinel + 1`` voxels: ``unobserved``
+    (-0.0 or +inf) but on an eighth of them, some at the clamp bounds."""
+    rng = np.random.default_rng(seed)
+    occ = np.full(cfg.sentinel + 1, np.float32(unobserved), np.float32)
+    seeded = rng.integers(0, cfg.sentinel, cfg.sentinel // 8)
+    occ[seeded] = rng.normal(0.0, 2.0, seeded.size).astype(np.float32)
+    occ[seeded[:500]] = np.float32(cfg.max_value)
+    occ[seeded[500:1000]] = np.float32(cfg.min_value)
+    return torch.from_numpy(occ).to(device)
+
+
+@pytest.mark.parametrize("name", DEPOSIT_EDGE_STREAMS)
+def test_deposit_kernel_matches_plain_on_edge_streams(bench_batch, name):
+    """The run-length kernel at the bench arena (512 slots x 32768 voxels)
+    on the streams its design makes risky: bit for bit against the plain
+    version, the touched count equal, and two runs give the same bits."""
+    _, b, cfg = bench_batch
+    keys = torch.from_numpy(deposit_edge_stream(name, cfg.sentinel)).to(b["valid"].device)
+    occ = _arena(cfg, keys.device, -0.0, seed=11)
+    out, touched = deposit_and_sweep(occ.clone(), keys, cfg)
+    again, touched_again = deposit_and_sweep(occ.clone(), keys, cfg)
+    ref_out, ref_touched = deposit_and_sweep_reference(occ.clone(), keys, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref_out.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+    assert int(touched) == int(ref_touched) == int(touched_again)
+    assert (int(touched) > 0) == (name not in ("empty", "all_sentinel"))
+
+
+@pytest.mark.parametrize("bounds", [True, False], ids=["bounds", "sorted_here"])
+@pytest.mark.parametrize("form", ["sparse", "dense"])
+@pytest.mark.parametrize("name", NDT_EDGE_STREAMS)
+def test_ndt_deposit_kernel_matches_plain_on_edge_streams(bench_batch, name, form, bounds):
+    """K3 at the bench arena on its edge streams (K2's, end-only voxels,
+    delta-only voxels, +-0.0 deltas, a delta behind zero-valued records),
+    end keys shuffled, the walk with its bounds (masked records a prefix of
+    each run) or sorted by the wrapper: bit for bit against the plain
+    version, the touched count equal, two runs the same bits."""
+    _, b, cfg = bench_batch
+    dev = b["valid"].device
+    st = {k: torch.from_numpy(v).to(dev) for k, v in ndt_edge_streams(name, cfg.sentinel).items()}
+    end = st["end"][torch.randperm(st["end"].numel(), device=dev)]
+    delta = (st["dkeys"], st["dvals"]) if form == "sparse" else st["plane"]
+    kw = {"bounds_key": st["bounds"]} if bounds else {}
+    occ = _arena(cfg, dev, np.inf, seed=12)
+    out, touched = deposit_and_sweep_ndt(occ.clone(), st["walk"], end, delta, cfg, **kw)
+    again, touched_again = deposit_and_sweep_ndt(occ.clone(), st["walk"], end, delta, cfg, **kw)
+    ref_out, ref_touched = deposit_and_sweep_ndt_reference(occ.clone(), st["walk"], end, delta,
+                                                           cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref_out.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
+    assert int(touched) == int(ref_touched) == int(touched_again)
 
 
 def test_mapper_on_card_matches_cpu(cuda):
@@ -227,6 +287,24 @@ def test_k1_and_k4_wrappers_issue_only_their_allocations(bench_batch):
                lambda: gather_plane(plane, ids, cfg.sentinel)):
         ops = dispatched_ops(fn)
         assert ops and set(ops) <= {"empty_like", "empty", "empty_strided"}, ops
+
+
+def test_deposit_wrappers_issue_only_their_scratch(bench_batch):
+    """K2's and K3's wrappers (K3 with the walk's bounds, as the mappers call
+    it) issue no PyTorch op but one allocation (the touched count, or K3's
+    table) and the view of its count."""
+    _, b, cfg = bench_batch
+    dev = b["valid"].device
+    keys = torch.from_numpy(deposit_edge_stream("block_edges", cfg.sentinel)).to(dev)
+    st = {k: torch.from_numpy(v).to(dev)
+          for k, v in ndt_edge_streams("delta_last", cfg.sentinel).items()}
+    occ = _arena(cfg, dev, -0.0, seed=13)
+    for fn in (lambda: deposit_and_sweep(occ, keys, cfg),
+               lambda: deposit_and_sweep_ndt(occ, st["walk"], st["end"],
+                                             (st["dkeys"], st["dvals"]), cfg,
+                                             bounds_key=st["bounds"])):
+        ops = dispatched_ops(fn)
+        assert ops and set(ops) <= {"empty", "select"} and ops.count("empty") == 1, ops
 
 
 def _ndt_run(device, tm, rng_seed=6):
@@ -460,8 +538,7 @@ def test_slotgrid_and_k3_match_the_scatter_yardstick(cuda):
     n_vox = c * pd.V
     want = scatter_deposit(keys, occ_flat, c, **pd.SWEEP)[:n_vox]
     grid = pd.deposit(keys, occ_flat.clone(), c)[:n_vox]
-    k3 = pd.k3_deposit(keys, occ_flat.clone(), pd.k3_config(c),
-                       torch.zeros(n_vox, dtype=torch.float32, device=cuda))[:n_vox]
+    k3 = pd.k3_deposit(keys, occ_flat.clone(), pd.k3_config(c))[:n_vox]
     torch.cuda.synchronize()
     assert pd.largest_count(keys, c) < 65535
     assert torch.equal(grid.view(torch.int32), want.view(torch.int32))
@@ -472,7 +549,7 @@ def _k1_batch(device, cdict: int, fdict: bool):
     """A 2048-ray box scan's wire with the given candidate dictionary and
     start-frac dictionary, decoded on ``device``; edge rays in its first 48
     rows (starts on voxel walls, zero lengths, a denormal direction component
-    on an axis the ray crosses once, which makes its enter time NaN, invalid
+    on an axis the ray crosses once, which reads as zero, invalid
     rays, more than S crossings)."""
     mapper = TorchRayMapper(OccupancyMap(resolution=0.1, flags=MapFlag.NONE), capacity=512,
                             device=device)
@@ -514,6 +591,7 @@ def test_expand_kernel_prelude_matches_plain(cuda, cdict, fdict):
             live = ref[0] != cfg.sentinel
             assert torch.equal(aux["vox"][live], ref[2][live])
     assert bool(aux["overflow"][40:48].all()) and not bool(aux["overflow"][:40].any())
-    # e0 is 0 * inf (NaN) or inf, and the one crossing's time e0 + 0 * inf.
-    assert bool(torch.isnan(aux["end_enter"][24:32]).all())
-    assert bool(torch.isfinite(aux["end_enter"][32:]).all())
+    # The denormal component reads as zero (inv = 3e38, as under XLA): the
+    # one crossing's time is e0 = (half - start_frac) * 3e38, finite.
+    assert bool(torch.isfinite(aux["end_enter"][24:]).all())
+    assert bool((aux["end_enter"][28:32] > 1e30).all())

@@ -12,7 +12,12 @@ contracts that into an FMA inside jitted programs, which changes the last
 bit on voxels that take both hits and misses in one batch.  So the jitted
 reference paths (apply_records_jit, the Pallas kernel) are compared on
 streams where no voxel mixes the two, and mixed streams are compared with
-the reference's XLA functions run op by op, which do not contract."""
+the reference's XLA functions run op by op, which do not contract.  The
+edge streams of ohm_tpu_torch.testing (which the run-length kernel's design
+makes risky) use hit and miss values whose products are exact, so mixed
+voxels compare against the Pallas kernel too."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ from ohm_tpu.ops.integrate import _apply_occupancy_dense, sorted_hit_miss_counts
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.deposit_cuda import (
     deposit_and_sweep, deposit_and_sweep_reference)
+from ohm_tpu_torch.testing import DEPOSIT_EDGE_STREAMS, deposit_edge_stream
 
 # tests/test_pallas_deposit.py's shapes: 16 slots of 8^3 voxels.
 BASE = dict(resolution=0.1, region_shift=3, capacity=16, max_steps=64,
@@ -149,3 +155,44 @@ def test_counts_cap_at_65535():
     assert out[10].item() == expect
     assert int(touched) == 1
     assert torch.equal(out[:10].view(torch.int32), torch.full((10,), -0.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("name", DEPOSIT_EDGE_STREAMS)
+def test_deposit_edge_streams_match_pallas_interpret(name):
+    """The streams that the run-length kernel's design makes risky (a run
+    past the 65535 cap, runs and hit/miss boundaries across 256- and
+    1024-record blocks, an empty and an all-sentinel stream, negative flat
+    keys) through the plain version, against the Pallas kernel in interpret
+    mode and the XLA apply run op by op.  Hit and miss values are exact
+    binary fractions, so every product is exact and XLA's FMA contraction
+    cannot change a bit: mixed voxels are compared here too."""
+    ref_cfg, cfg = _cfgs(hit_value=0.75, miss_value=-0.25, min_value=-1e5, max_value=1e5)
+    keys = deposit_edge_stream(name, cfg.sentinel)
+    # The XLA apply scatters every record: its scratch tail must hold them.
+    ref_cfg = dataclasses.replace(ref_cfg, scatter_pad=max(8192, keys.size))
+    occ = _arena(ref_cfg, seed=6)
+    n = cfg.sentinel + 1
+    key_j, occ_j = jnp.asarray(keys), jnp.asarray(occ)
+    # The Pallas kernel cannot slice a chunk out of an empty stream; it gets
+    # one sentinel key instead, which every version skips.
+    key_p = key_j if keys.size else jnp.asarray([cfg.sentinel << 1], jnp.int32)
+    refs = {"xla_op_by_op": _reference(ref_cfg, occ_j, key_j),
+            "pallas_interpret": deposit_pallas.deposit_and_sweep(occ_j, key_p, ref_cfg,
+                                                                 interpret=True)}
+    port_occ, port_touched = deposit_and_sweep(
+        torch.from_numpy(occ[:n].copy()), torch.from_numpy(keys), cfg)
+    port_bits = port_occ.numpy().view(np.uint32)
+    for ref_name, (ref_occ, ref_touched) in refs.items():
+        ref_bits = np.asarray(ref_occ)[:n].view(np.uint32)
+        assert np.array_equal(ref_bits, port_bits), (ref_name,
+                                                     np.flatnonzero(ref_bits != port_bits)[:10])
+        # The XLA apply counts negative ids among its distinct voxels (no
+        # mapper gives one); the Pallas kernel and the port skip them.
+        if not (name == "negative" and ref_name == "xla_op_by_op"):
+            assert int(port_touched) == int(ref_touched), ref_name
+    live = (keys >> 1 >= 0) & (keys >> 1 < cfg.sentinel)
+    assert int(port_touched) == np.unique(keys[live] >> 1).size
+    assert (int(port_touched) > 0) == (name not in ("empty", "all_sentinel"))
+    if name == "long_run":  # 70,000 misses take 65,535 of them
+        x = occ[10] if occ[10] != 0 else np.float32(0.0)
+        assert port_occ[10].item() == np.float32(x + np.float32(65535 * -0.25))

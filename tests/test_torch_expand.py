@@ -126,15 +126,20 @@ def test_expand_keys_on_cpu_is_the_plain_version():
     assert torch.equal(aux_t["trav"].view(torch.int32), trav.view(torch.int32))
 
 
-EDGE_KINDS = ("on_walls", "zero_length", "axis_aligned", "invalid", "overflow")
+EDGE_KINDS = ("on_walls", "zero_length", "axis_aligned", "invalid", "overflow", "denormal")
+
+#: Denormal direction components: XLA's comparisons read them as zero.
+DENORMALS = np.array([1e-40, -1e-40, 2.0**-149, -2.0**-149], np.float32)
 
 
 def _edge_batch(b: dict, kind: str, S: int, resolution: float, n: int = 16) -> dict:
     """numpy copies of a batch's fields with its first ``n`` rays made
     ``kind``: starting exactly on the voxel wall they leave (e0 = +-0),
     of zero length (inv = 0), with a zero direction component on an axis
-    they still cross (inv = +-3e38), invalid, or crossing more than S
-    walls on an axis."""
+    they still cross (inv = +-3e38), invalid, crossing more than S walls
+    on an axis, or with denormal direction components (+-1e-40, +-2^-149)
+    on one axis, or on two for half of them, which they cross once
+    (forwards or backwards; a quarter start on the wall)."""
     out = {k: np.array(v) for k, v in b.items()}
     half = np.float32(0.5) * np.float32(resolution)
     d, sf, sa, ea = out["direction"], out["start_frac"], out["start_abs"], out["end_abs"]
@@ -150,6 +155,12 @@ def _edge_batch(b: dict, kind: str, S: int, resolution: float, n: int = 16) -> d
     elif kind == "invalid":
         out["valid"][:n] = False
         out["exclude_start"][:n] = False
+    elif kind == "denormal":
+        i = np.arange(n)
+        d[:n, 1] = DENORMALS[i % 4]
+        d[n // 2:n, 2] = DENORMALS[(i[n // 2:] + 1) % 4]
+        ea[:n, 1] = sa[:n, 1] + np.where(i % 2 == 0, 1, -1)
+        sf[:n // 4, 1] = half
     else:
         ea[:n, np.arange(n) % 3] = sa[:n, np.arange(n) % 3] + S + 1 + np.arange(n)
     return out
@@ -157,17 +168,19 @@ def _edge_batch(b: dict, kind: str, S: int, resolution: float, n: int = 16) -> d
 
 @pytest.mark.parametrize("kind", EDGE_KINDS)
 def test_expand_aux_matches_pallas_interpret_on_edge_rays(kind):
-    """overflow and the end voxel's enter time (the plain prelude on the
-    CPU, which the kernel computes on the card) against the reference's
-    Pallas expand_keys aux, bit for bit, on rays whose set-up hits the
-    walk's edge cases."""
+    """The keys, missed count, overflow and the end voxel's enter time (the
+    plain prelude on the CPU, which the kernel computes on the card) against
+    the reference's Pallas expand_keys, bit for bit, on rays whose set-up
+    hits the walk's edge cases."""
     wire, jcfg = _wire(_scene(n=64, seed=5))
     cfg = _port_cfg(jcfg)
     edge = _edge_batch(dict(_unpack_batch({"rayw": jnp.asarray(wire)}, jcfg)), kind,
                        cfg.max_steps, cfg.resolution)
-    _, _, ref_aux = expand_pallas.expand_keys({k: jnp.asarray(v) for k, v in edge.items()},
-                                              jcfg, interpret=True)
-    _, aux = expand_keys({k: torch.from_numpy(v) for k, v in edge.items()}, cfg)
+    ref_key, _, ref_aux = expand_pallas.expand_keys(
+        {k: jnp.asarray(v) for k, v in edge.items()}, jcfg, interpret=True)
+    key, aux = expand_keys({k: torch.from_numpy(v) for k, v in edge.items()}, cfg)
+    assert np.array_equal(np.asarray(ref_key), key.numpy())
+    assert int(ref_aux["missed_n"]) == int(aux["missed_n"])
     ref_enter = np.asarray(ref_aux["end_enter"])
     assert np.array_equal(ref_enter.view(np.uint32), aux["end_enter"].numpy().view(np.uint32))
     assert np.array_equal(np.asarray(ref_aux["overflow"]), aux["overflow"].numpy())
@@ -177,3 +190,8 @@ def test_expand_aux_matches_pallas_interpret_on_edge_rays(kind):
         assert (ref_enter[:16] == 0).all()
     if kind == "axis_aligned":
         assert (ref_enter[:16] > 1e30).all()  # e0 + dd on the still axis: ~1e37
+    if kind == "denormal":
+        # The denormal axis is still (inv = +3e38): its one event is at
+        # e0 = (half - start_frac) * 3e38, 0 on the wall, ~1e37 or more
+        # (inf on a second such axis it crosses) elsewhere; never NaN.
+        assert not np.isnan(ref_enter[:16]).any() and (ref_enter[4:16] > 1e30).all()

@@ -38,6 +38,38 @@ def _cluster_rays(n, rng, centre, radius=2.5):
     return rays
 
 
+DENORMALS = np.array([1e-40, -1e-40, 2.0**-149, -2.0**-149])
+
+
+def _denormal_rays(rng):
+    """Rays whose host f32 direction holds denormal components (+-1e-40,
+    +-2^-149), which the reference reads as zero: 24 along +-x from the
+    plane y = 0 (a wall), each in its own z lane (a few with a small normal
+    z slope), with a denormal y component; and 12 outwards along x, y or z
+    from the line where the other two coordinates are 0, with denormals on
+    both.  No voxel takes a hit and a miss in one batch (the jitted
+    reference sweep contracts those into an FMA, tests/test_torch_deposit.py)."""
+    start, end = np.zeros((36, 3)), np.zeros((36, 3))
+    for k in range(24):
+        out = 1.0 if k % 2 == 0 else -1.0
+        length = rng.uniform(1.0, 2.5)
+        lane = (0.15 + 0.1 * (k // 4)) * (1.0 if k % 4 < 2 else -1.0)
+        start[k] = (out * rng.uniform(0.5, 1.0), 0.0, lane)
+        end[k] = start[k] + (out * length, DENORMALS[k % 4] * length,
+                             0.01 * length if k % 3 == 0 else 0.0)
+    for k in range(12):
+        axis, out = k % 3, 1.0 if k % 6 < 3 else -1.0
+        length = rng.uniform(1.0, 1.5)
+        start[24 + k, axis] = out * rng.uniform(0.3, 0.5)
+        end[24 + k] = start[24 + k]
+        end[24 + k, axis] += out * length
+        others = [a for a in range(3) if a != axis]
+        end[24 + k, others] = DENORMALS[[k % 4, (k + 1) % 4]] * length
+    rays = np.empty((72, 3))
+    rays[0::2], rays[1::2] = start, end
+    return rays
+
+
 def _scenarios():
     rng = np.random.default_rng(29)
     return {
@@ -55,6 +87,10 @@ def _scenarios():
                            batches=[_cluster_rays(48, rng, CENTRES[0]),
                                     np.concatenate([_cluster_rays(32, rng, c)
                                                     for c in CENTRES])]),
+        # Rays with denormal direction components after a box scan.
+        "denormal": dict(capacity=64, flags=(0, 0, int(RayFlag.EXCLUDE_ORIGIN)),
+                         batches=[_box_rays(160, rng), _denormal_rays(rng),
+                                  _denormal_rays(rng)]),
     }
 
 
@@ -86,7 +122,7 @@ def runs():
     return out
 
 
-SCENARIOS = ("batches", "eviction", "cache_full")
+SCENARIOS = ("batches", "eviction", "cache_full", "denormal")
 
 
 @pytest.mark.parametrize("name", SCENARIOS)

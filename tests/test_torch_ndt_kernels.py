@@ -4,7 +4,9 @@ package's Pallas kernels in interpret mode:
   K3  deposit_and_sweep_ndt, with the miss delta as a sparse stream and as
       a dense plane, a masked walk stream (the reference's bounds stream is
       the unmasked one) and a second end/sample stream: occupancy bits and
-      the touched count identical over [0, sentinel]
+      the touched count identical over [0, sentinel]; so on the edge
+      streams of ohm_tpu_torch.testing; and the NDT mapper's walk stream
+      masks a prefix of each voxel's run, as K3's kernel needs
   K4  gather_plane over a sorted id stream with sentinel padding: identical
   K4 fused with its flag build (gather_ndt_flags): the reference's Gaussian
       flag plane (integrate_ndt.py:195-197) gathered by gather_plane, on an
@@ -29,10 +31,13 @@ from ohm_tpu.mapping.tpu_map import TpuRayMapper
 from ohm_tpu.ops import deposit_pallas, expand_pallas
 from ohm_tpu.ops.integrate import IntegrateConfig as RefConfig
 from ohm_tpu.ops.integrate import _unobserved, _unpack_batch
+from ohm_tpu_torch import TorchNdtMap
+from ohm_tpu_torch.core.map import MapFlag as PortMapFlag
+from ohm_tpu_torch.core.map import OccupancyMap as PortMap
 from ohm_tpu_torch.ops import deposit_cuda, expand_cuda, gather_cuda
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.wire import unpack_batch
-from ohm_tpu_torch.testing import ndt_flag_arena
+from ohm_tpu_torch.testing import NDT_EDGE_STREAMS, ndt_edge_streams, ndt_flag_arena
 
 BASE = dict(resolution=0.1, region_shift=3, capacity=16, max_steps=64,
             hit_value=0.85, miss_value=-0.15, occupancy_threshold=0.0,
@@ -120,6 +125,100 @@ def test_ndt_deposit_plain_matches_pallas_interpret(form, saturation):
     assert int(port_touched) == int(ref_touched) > 0
     assert b[cfg.sentinel] == np.float32(np.inf).view(np.uint32)  # never written
     assert (b != occ[:n].view(np.uint32)).sum() > 100
+
+
+@pytest.mark.parametrize("form", ["sparse", "dense"])
+@pytest.mark.parametrize("name", NDT_EDGE_STREAMS)
+def test_ndt_deposit_edge_streams_match_pallas_interpret(name, form):
+    """The streams that the run-length kernel's design makes risky (K2's:
+    a run past the 65535 cap, runs across 256- and 1024-record blocks,
+    empty and all-sentinel streams, negative flat keys; and a voxel whose
+    only records are end keys, a delta-only voxel, -0.0 and +0.0 deltas, a
+    delta at a voxel's last record behind zero-valued ones) through the
+    plain version, end keys shuffled, against the Pallas kernel in interpret
+    mode (bounds = the unmasked walk, sorted end keys).  Hit and miss values
+    are exact binary fractions, so XLA's FMA contraction changes no bit."""
+    ref_cfg, cfg = _cfgs(hit_value=0.75, miss_value=-0.25, min_value=-1e5, max_value=1e5)
+    st = ndt_edge_streams(name, cfg.sentinel)
+    occ = _arena(ref_cfg, seed=8)
+    n = cfg.sentinel + 1
+    # The Pallas kernel cannot slice a chunk out of an empty stream: it gets
+    # one sentinel record instead, which every version skips.
+    pad = lambda a, v: a if a.size else np.asarray([v], a.dtype)
+    sent = np.int32(cfg.sentinel << 1)
+    walk_j, bounds_j, end_j, dk_j = (jnp.asarray(pad(st[k], sent))
+                                     for k in ("walk", "bounds", "end", "dkeys"))
+    dv_j = jnp.asarray(pad(st["dvals"], np.float32(0.0)))
+    plane_j = jnp.asarray(np.pad(st["plane"], (0, occ.shape[0] - n)))
+    ref_occ, ref_touched = deposit_pallas.deposit_and_sweep_ndt(
+        jnp.asarray(occ), walk_j, (dk_j, dv_j) if form == "sparse" else plane_j, ref_cfg,
+        interpret=True, bounds_key=bounds_j, key2_sorted=end_j)
+    end = np.random.default_rng(1).permutation(st["end"])
+    delta = ((torch.from_numpy(st["dkeys"]), torch.from_numpy(st["dvals"]))
+             if form == "sparse" else torch.from_numpy(st["plane"].copy()))
+    port_occ, port_touched = deposit_cuda.deposit_and_sweep_ndt(
+        torch.from_numpy(occ[:n].copy()), torch.from_numpy(st["walk"]), torch.from_numpy(end),
+        delta, cfg)
+    a = np.asarray(ref_occ)[:n].view(np.uint32)
+    b = port_occ.numpy().view(np.uint32)
+    assert np.array_equal(a, b), np.flatnonzero(a != b)[:10]
+    assert int(port_touched) == int(ref_touched)
+    keys = np.concatenate([st["walk"], st["end"]]) >> 1
+    with_keys = np.unique(keys[(keys >= 0) & (keys < cfg.sentinel)])
+    assert int(port_touched) == with_keys.size
+    # Voxels with a delta and no key record: swept where the delta is not
+    # +-0.0 (and the voxel not saturated), not counted.
+    dflat, dval = st["dkeys"] >> 1, st["dvals"]
+    alone = ((dflat >= 0) & (dflat < cfg.sentinel) & (dval.view(np.uint32) != 0)
+             & ~np.isin(dflat, with_keys))
+    changed = b != occ[:n].view(np.uint32)
+    assert (changed[dflat[alone]] == (dval[alone] != 0)).all()
+    if name == "delta_only":  # a voxel with every walk record masked, one with none
+        assert alone.sum() >= 2 and changed[dflat[alone]].sum() >= 2
+    if name == "neg_zero_delta":  # -0.0 alone: a nonzero pattern, a zero value
+        assert (dval[alone].view(np.uint32) == 0x80000000).any()
+    if name == "long_run":
+        assert port_occ[10].item() != occ[10]
+
+
+def test_ndt_walk_stream_masks_a_prefix_of_each_run(monkeypatch):
+    """K3's kernel reads the walk stream with its unmasked bounds and needs
+    the records the NDT math took (masked to the sentinel key) to come first
+    in each voxel's run.  The NDT mapper's streams hold it: a plane of
+    samples, then rays through a patch of it with miss_k = 11, so that
+    some flagged voxels are cut part way (ndt_overflow > 0)."""
+    calls = []
+    inner = deposit_cuda.deposit_and_sweep_ndt
+
+    def spy(occ, walk, end, delta, cfg, bounds_key=None):
+        calls.append((walk.clone(), bounds_key.clone(), cfg.sentinel))
+        return inner(occ, walk, end, delta, cfg, bounds_key=bounds_key)
+
+    monkeypatch.setattr(deposit_cuda, "deposit_and_sweep_ndt", spy)
+    rng = np.random.default_rng(6)
+    build = np.empty((400, 3))
+    build[0::2] = (0.0, 0.0, 2.0)
+    build[1::2] = np.column_stack([rng.uniform(-1, 1, 200), rng.uniform(-1, 1, 200),
+                                   rng.normal(0, 0.005, 200)])
+    through = np.empty((240, 3))
+    through[0::2] = (0.0, 0.0, 2.0)
+    through[1::2] = np.column_stack([rng.uniform(-0.3, 0.3, 120), rng.uniform(-0.3, 0.3, 120),
+                                     np.full(120, -0.8)])
+    mapper = TorchNdtMap(PortMap(resolution=0.25, flags=PortMapFlag.NONE), capacity=64,
+                         miss_k=11, device="cpu")
+    for rays in [build[i:i + 100] for i in range(0, 400, 100)] + [through]:
+        mapper.integrate_rays(rays)
+    assert mapper.stats["ndt_overflow"] > 0
+    cut = 0
+    for walk, bounds, sentinel in calls:
+        assert bool((bounds[1:] >= bounds[:-1]).all())
+        masked = walk != bounds
+        assert bool((walk[masked] == sentinel << 1).all())
+        same_run = bounds[1:] == bounds[:-1]
+        # Within a run, an unmasked record is never followed by a masked one.
+        assert not bool((same_run & ~masked[:-1] & masked[1:]).any())
+        cut += int((same_run & masked[:-1] & ~masked[1:]).sum())
+    assert cut > 0  # some runs are masked only in part
 
 
 def test_ndt_deposit_delta_alone_sweeps_and_is_not_touched():
