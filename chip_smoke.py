@@ -138,6 +138,15 @@ exit code is not 0 and no result line is printed:
                arena of 1024 x 32768 voxels, one depositing record per voxel
                with negative, -0.0, infinite and NaN distances: both planes
                bit for bit
+  tsdf_visits  the fused TSDF per-visit kernel (K5+K6 with the blocked scans
+               between them) against its plain version on
+               ohm_tpu_torch.testing's edge streams (stored pairs holding
+               -0.0, +-inf, NaN payloads and denormals, runs across one or
+               several 1024-record rows, max_weight saturation in a run,
+               near-zero visits, non-uniform weights, a short stream, an
+               all-sentinel one) and at full size (~1.2M sorted ids over a
+               1024-slot arena, uniform and non-uniform weights): both
+               planes bit for bit, and the same bits on a second run
   tsdf_hardware_differential
                TorchTsdfMap on the card on tests/test_tsdf.py's sphere scene,
                against the port's f64 oracle at that test's tolerance
@@ -150,11 +159,16 @@ exit code is not 0 and no result line is printed:
                default TsdfOptions, 12 timed 8192-ray batches after 6 warm-up;
                host prep, device time, each kernel beside its plain version,
                the launch counts, a profile line and the peak allocation;
-               before it (the "tsdf_kernel_checks" line) K1 with voxel planes,
-               K5 and K6 on the arguments this path gave them in one batch,
-               each against its plain version bit for bit; K5 against two
+               before it (the "tsdf_kernel_checks" line) K1 with voxel planes
+               and the fused per-visit kernel on the arguments this path
+               gave them in one batch, and K5 and K6 on arguments derived
+               from the fused call's (K5 on its ids and planes, K6 on the
+               plain chain's deposits), each against its plain version bit
+               for bit; the fused kernel against the chain the path ran
+               before it (K5, the scans, K6) and K5 against two
                index_selects and K6 against two index_put_s in six
-               alternated turns (medians and turns won)
+               alternated turns (medians and turns won); the fused kernel's
+               launches on the path must be > 0, K5's and K6's 0
 
   p_path       the deposit probe's own path (P), through its entry point
                (ohm_tpu_torch.scripts.probe_deposit main) at full size: the
@@ -214,12 +228,14 @@ from ohm_tpu_torch.oracle.ndt import NdtParams, RayMapperNdt
 from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
 from ohm_tpu_torch.oracle.tsdf import RayMapperTsdf, TsdfOptions
 from ohm_tpu_torch.ops import (_build, deposit_cuda, expand_cuda, gather_cuda, probes_cuda,
-                               slotgrid_cuda)
+                               slotgrid_cuda, tsdf_cuda)
 from ohm_tpu_torch.ops.integrate import apply_records, apply_sample_layers, expand_records
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit
-from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, deposit_edge_stream,
-                                   dispatched_ops, edge_rays, ndt_edge_streams, ndt_flag_arena)
+from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, TSDF_SPECIALS,
+                                   TSDF_VISIT_STREAMS, deposit_edge_stream, dispatched_ops,
+                                   edge_rays, ndt_edge_streams, ndt_flag_arena,
+                                   tsdf_visit_stream)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -2060,21 +2076,115 @@ def phase_tsdf_hardware_differential() -> None:
         raise AssertionError("TSDF GPU differential failed")
 
 
-def check_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
+def tsdf_visits_bounds(ids, w, sentinel: int, depositing: int) -> tuple[dict, dict]:
+    """The fused per-visit call's bound: the bytes the function needs (a
+    record's 4-byte id and 4-byte w * sdf, its 4-byte weight where the
+    weights are not uniform, (w0, d0) of each distinct voxel, the (w, d)
+    each depositing record stores) or TSDF_VISIT_OPS a record, whichever
+    is longer; and the same for the bytes this design moves: w0 is read at
+    each distinct voxel but d0 only at each depositing record, and each
+    1024-record row writes its two columns of the carry table (28 bytes a
+    level) and its two ready counts."""
+    n, voxels = ids.numel(), distinct(ids, sentinel)
+    wb = 0 if w is None else 4
+    rows = -(-n // tsdf_cuda.ROW)
+    levels = 1 + max(0, (rows - 1).bit_length())
+    ops = TSDF_VISIT_OPS * n
+    return (bound((8 + wb) * n + 8 * voxels + 8 * depositing, ops),
+            bound((8 + wb) * n + 4 * voxels + 12 * depositing + (28 * levels + 8) * rows, ops))
+
+
+def check_tsdf_visits(weight, distance, ids, w, wsdf, trunc, max_weight, sentinel) -> dict:
+    """The fused kernel, its plain version and the kernel again, each on
+    clones of the planes: both planes bit for bit, and the same bits on
+    the second run."""
+    outs = []
+    for fn in (tsdf_cuda.tsdf_visits, tsdf_cuda.tsdf_visits_reference, tsdf_cuda.tsdf_visits):
+        planes = (weight.clone(), distance.clone())
+        fn(*planes, ids, w, wsdf, trunc, max_weight, sentinel)
+        outs.append(planes)
+    torch.cuda.synchronize()
+    (wk, dk), (wp, dp), (wk2, dk2) = outs
+    return {"records": ids.numel(), "uniform": w is None,
+            "stored_voxels": int((wp.view(torch.int32) != weight.view(torch.int32)).sum()),
+            "max_abs_err": max(finite_err(wk, wp), finite_err(dk, dp)),
+            "bit_identical": same_bits(wk, wp) and same_bits(dk, dp),
+            "runs_bit_identical": same_bits(wk, wk2) and same_bits(dk, dk2)}
+
+
+def _tsdf_full_size(cfg, rng) -> tuple:
+    """The fused call's arguments at full size: ~1.2M ascending ids over 320
+    of 1024 slots with a sentinel tail; stored weights in [0, 50) on 70% of
+    the arena and distances in the band, TSDF_SPECIALS on 100,000 voxels of
+    each plane; sdf beyond the band both ways; non-uniform weights in
+    [0, 2) (a tenth 0)."""
+    n_vox = cfg.sentinel
+    weight = np.where(rng.random(n_vox + 1) < 0.7, rng.uniform(0.0, 50.0, n_vox + 1),
+                      0.0).astype(np.float32)
+    distance = rng.uniform(-0.1, 0.1, n_vox + 1).astype(np.float32)
+    for plane in (weight, distance):
+        plane[rng.choice(n_vox, 100_000, replace=False)] = TSDF_SPECIALS[
+            np.arange(100_000) % TSDF_SPECIALS.size]
+    ids = _sorted_ids(rng, cfg, 1_150_000, 50_000)
+    w = rng.uniform(0.0, 2.0, ids.size).astype(np.float32)
+    w[(rng.random(ids.size) < 0.1) | (ids == cfg.sentinel)] = 0.0
+    sdf = rng.uniform(-0.25, 0.25, ids.size).astype(np.float32)
+    return tuple(torch.from_numpy(x).cuda() for x in (weight, distance, ids, w, sdf, w * sdf))
+
+
+def phase_tsdf_visits() -> dict:
+    cfg = _tsdf_config_at_bench_shape()
+    rows = {}
+    for name in TSDF_VISIT_STREAMS:
+        st = tsdf_visit_stream(name, cfg.sentinel, seed=SEED)
+        w = None if st["w"] is None else torch.from_numpy(st["w"]).cuda()
+        rows[name] = check_tsdf_visits(
+            *(torch.from_numpy(st[k]).cuda() for k in ("weight", "distance", "ids")), w,
+            torch.from_numpy(st["wsdf"]).cuda(), st["trunc"], st["max_weight"], cfg.sentinel)
+    weight, distance, ids, w, sdf, wsdf = _tsdf_full_size(cfg, np.random.default_rng(SEED))
+    trunc, max_weight = float(np.float32(0.1)), 1e4
+    rows["full_uniform"] = check_tsdf_visits(weight, distance, ids, None, sdf, trunc,
+                                             max_weight, cfg.sentinel)
+    rows["full_weighted"] = check_tsdf_visits(weight, distance, ids, w, wsdf, trunc,
+                                              max_weight, cfg.sentinel)
+    ok = all(r["bit_identical"] and r["runs_bit_identical"] for r in rows.values())
+    # Uniform weights store every voxel but those whose seed is NaN or -inf.
+    ok = ok and rows["full_uniform"]["stored_voxels"] > 0.9 * distinct(ids, cfg.sentinel)
+    emit({"phase": "tsdf_visits", "tolerance": 0, "bit_identical": bool(ok), "streams": rows})
+    if not ok:
+        raise AssertionError(f"the fused TSDF kernel differs from its plain version: {rows}")
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+
+
+def _path_kernel_args(visits_call) -> dict:
+    """The fused call's captured arguments, and K5's and K6's derived from
+    them: K5 on its ids and planes, K6 on the deposits of the plain chain."""
+    (weight, distance, ids, w, wsdf, trunc, max_weight, sentinel), _ = visits_call
+    seeds = gather_cuda.gather_planes_f32_reference((weight, distance), ids, sentinel)
+    dw, dd = tsdf_cuda.tsdf_visit_deposits(*seeds, ids, w, wsdf, trunc, max_weight, sentinel)
+    return {"visits": (weight, distance, ids, w, wsdf, trunc, max_weight, sentinel),
+            "k5": ((weight, distance), ids, sentinel),
+            "k6": (weight, distance, ids, dw, dd, sentinel)}
+
+
+def check_tsdf_path_calls(k1_call, visits_call) -> dict:
     """Each kernel against its plain version on the arguments the TSDF path
     gave it (0.1 m voxels, 1024 slots): K1's keys, missed count and voxel
-    planes on lanes whose key is not the sentinel; K5's two planes; K6's two
-    planes, each side run on its own clones.  Bit for bit; raises on any
-    difference."""
+    planes on lanes whose key is not the sentinel; the fused per-visit
+    kernel's two planes (and a second run); K5's two planes and K6's two
+    planes on the arguments derived from the fused call's, each side run on
+    its own clones.  Bit for bit; raises on any difference."""
     k1_row = check_k1_call(k1_call)
+    args = _path_kernel_args(visits_call)
+    visits_row = check_tsdf_visits(*args["visits"])
 
-    (planes, ids, sentinel), _ = k5_call
+    planes, ids, sentinel = args["k5"]
     out_k = gather_cuda.gather_planes_f32(planes, ids, sentinel)
     out_p = gather_cuda.gather_planes_f32_reference(planes, ids, sentinel)
     k5_err = max(finite_err(a, b) for a, b in zip(out_k, out_p))
     k5_ok = all(same_bits(a, b) for a, b in zip(out_k, out_p))
 
-    (weight, distance, dids, w, d, dsentinel), _ = k6_call
+    weight, distance, dids, w, d, dsentinel = args["k6"]
     dep_k = deposit_cuda.tsdf_set_deposit(weight.clone(), distance.clone(), dids, w, d,
                                           dsentinel)
     dep_p = deposit_cuda.tsdf_set_deposit_reference(weight.clone(), distance.clone(), dids,
@@ -2084,26 +2194,33 @@ def check_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
     depositing = int(((dids < dsentinel) & (w > 0)).sum())
     k6_ok = all(same_bits(a, b) for a, b in zip(dep_k, dep_p)) and depositing > 0
 
-    row = {"expand_keys": k1_row,
+    row = {"expand_keys": k1_row, "tsdf_visits": visits_row,
            "gather_planes_f32": {"ids": ids.numel(), "max_abs_err": k5_err,
                                  "bit_identical": bool(k5_ok)},
            "tsdf_set_deposit": {"records": dids.numel(), "depositing": depositing,
                                 "max_abs_err": k6_err, "bit_identical": bool(k6_ok)}}
     emit({"phase": "tsdf_kernel_checks", "tolerance": 0, **row})
-    if not (k1_row["bit_identical"] and k5_ok and k6_ok):
+    if not (k1_row["bit_identical"] and visits_row["bit_identical"]
+            and visits_row["runs_bit_identical"] and visits_row["stored_voxels"] > 0
+            and k5_ok and k6_ok):
         raise AssertionError(f"a kernel differs from its plain version on the TSDF path: {row}")
     return {name: r["max_abs_err"] for name, r in row.items()}
 
 
-def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
-    """Each kernel beside its plain version on the TSDF path's arguments,
-    its bound, and the time of the PyTorch calls that compute the same
-    function: K5 = index_select of each plane (the ids stop at the
-    sentinel, whose +0.0 the planes hold), K6 = index_put_ of each plane at
-    the ids of the depositing records (the masking outside the timing)."""
+def time_tsdf_path_calls(k1_call, visits_call) -> dict:
+    """Each kernel beside its plain version on the TSDF path's arguments
+    (K5's and K6's derived from the fused call's), its bound, and the time
+    of the PyTorch calls that compute the same function: K5 = index_select
+    of each plane (the ids stop at the sentinel, whose +0.0 the planes
+    hold), K6 = index_put_ of each plane at the ids of the depositing
+    records (the masking outside the timing); no one call computes the
+    fused kernel's function.  The fused kernel also beside the chain the
+    path ran before it (K5, the scans between, K6) in alternated turns, and
+    alone (its four kernels' device time, its device operations a call)."""
     (b, cfg), kw = k1_call
-    (planes, ids, sentinel), _ = k5_call
-    (weight, distance, dids, w, d, dsentinel), _ = k6_call
+    args = _path_kernel_args(visits_call)
+    planes, ids, sentinel = args["k5"]
+    weight, distance, dids, w, d, dsentinel = args["k6"]
     kernel_ms, plain_ms, library_ms = {}, {}, {}
     plain_ms["expand_keys"], kernel_ms["expand_keys"] = plain_vs_kernel_ms(
         lambda: expand_cuda.expand_keys_reference(b, cfg, kw["exclude_origin"], with_vox=True),
@@ -2118,6 +2235,23 @@ def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
         lambda: deposit_cuda.tsdf_set_deposit_reference(wa, da, dids, w, d, dsentinel),
         lambda: deposit_cuda.tsdf_set_deposit(wb, db, dids, w, d, dsentinel))
 
+    # The fused call, each side updating its own clones of the planes in place.
+    rest = args["visits"][2:]
+    va, vb, vc = ((weight.clone(), distance.clone()) for _ in range(3))
+    plain_ms["tsdf_visits"], kernel_ms["tsdf_visits"] = plain_vs_kernel_ms(
+        lambda: tsdf_cuda.tsdf_visits_reference(*va, *rest),
+        lambda: tsdf_cuda.tsdf_visits(*vb, *rest))
+
+    def k5_scans_k6():
+        seeds = gather_cuda.gather_planes_f32(vc, ids, sentinel)
+        pair = tsdf_cuda.tsdf_visit_deposits(*seeds, *rest)
+        deposit_cuda.tsdf_set_deposit(*vc, ids, *pair, sentinel)
+
+    fused_turns = alternated_ms({"fused": lambda: tsdf_cuda.tsdf_visits(*vb, *rest),
+                                 "k5_scans_k6": k5_scans_k6})
+    visits_device = device_profile(lambda: tsdf_cuda.tsdf_visits(*vb, *rest),
+                                   TSDF_VISITS_KERNELS)
+
     def select():
         return tuple(torch.index_select(p, 0, ids) for p in planes)
 
@@ -2125,6 +2259,7 @@ def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
     if all(same_bits(a, c) for a, c in zip(select(), gather_cuda.gather_planes_f32(
             planes, ids, sentinel))):
         library_ms["gather_planes_f32"] = cuda_ms(select)
+    library_ms["tsdf_visits"] = None
     mask = (dids < dsentinel) & (w > 0)
     idx, wv, dv = dids[mask].long(), w[mask], d[mask]
     wl, dl = weight.clone(), distance.clone()
@@ -2136,7 +2271,7 @@ def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
     put()
     library_ms["tsdf_set_deposit"] = (cuda_ms(put) if same_bits(wl, wb) and same_bits(dl, db)
                                       else None)
-    # Each kernel against its library calls in six alternated turns: the
+    # K5 and K6 against their library calls in six alternated turns: the
     # medians, and the turns each side won.
     versus = {}
     for name, kernel, library in (
@@ -2148,13 +2283,24 @@ def time_tsdf_path_calls(k1_call, k5_call, k6_call) -> dict:
         versus[name] = {**turns, "kernel_wins": sum(
             k < lib for k, lib in zip(turns["kernel"]["turns_ms"], turns["library"]["turns_ms"]))}
     depositing = int(mask.sum())
+    visits_bound, visits_design = tsdf_visits_bounds(ids, rest[1], sentinel, depositing)
     bounds = {"expand_keys": k1_bound(b, cfg, with_vox=True),
               "gather_planes_f32": bound(12 * ids.numel() + 8 * distinct(ids, sentinel),
                                          2 * ids.numel()),
-              "tsdf_set_deposit": bound(12 * dids.numel() + 8 * depositing, 2 * dids.numel())}
+              "tsdf_set_deposit": bound(12 * dids.numel() + 8 * depositing, 2 * dids.numel()),
+              "tsdf_visits": visits_bound}
+    fused = {"kernel_alone_ms": visits_device["kernel_ms"],
+             "device_ms_per_call": visits_device["device_ms"],
+             "device_ops_per_call": visits_device["device_ops"],
+             "design_bound_ms": visits_design["bound_ms"],
+             "design_bound_bytes": visits_design["bound_bytes"],
+             "k5_scans_k6_ms": fused_turns["k5_scans_k6"]["median_ms"],
+             "versus_k5_scans_k6": {**fused_turns, "fused_wins": sum(
+                 f < c for f, c in zip(fused_turns["fused"]["turns_ms"],
+                                       fused_turns["k5_scans_k6"]["turns_ms"]))}}
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound": bounds,
             "records": ids.numel(), "depositing": depositing, "k1_alone_ms": k1_alone,
-            "versus_library": versus}
+            "versus_library": versus, "fused": fused}
 
 
 def phase_tsdf_bench() -> dict:
@@ -2170,17 +2316,18 @@ def phase_tsdf_bench() -> dict:
     # One more batch, its kernel calls captured and each held against its
     # plain version; then the same arguments timed.
     with first_call_args(expand_cuda, "expand_keys") as k1_args, \
-            first_call_args(gather_cuda, "gather_planes_f32") as k5_args, \
-            first_call_args(deposit_cuda, "tsdf_set_deposit") as k6_args:
+            first_call_args(tsdf_cuda, "tsdf_visits") as visits_args:
         mapper.integrate_rays(batches[TSDF_WARMUP])
     torch.cuda.synchronize()
-    errs = check_tsdf_path_calls(k1_args[0], k5_args[0], k6_args[0])
-    calls = time_tsdf_path_calls(k1_args[0], k5_args[0], k6_args[0])
-    del k1_args, k5_args, k6_args
+    errs = check_tsdf_path_calls(k1_args[0], visits_args[0])
+    calls = time_tsdf_path_calls(k1_args[0], visits_args[0])
+    del k1_args, visits_args
     torch.cuda.synchronize()
 
-    # The TSDF path, counted: every count is 0 just before it.
+    # The TSDF path, counted: every count is 0 just before it.  The fused
+    # kernel took K5's and K6's place there: theirs must stay 0.
     counters = {"expand_keys": expand_cuda.expand_keys,
+                "tsdf_visits": tsdf_cuda.tsdf_visits,
                 "gather_planes_f32": gather_cuda.gather_planes_f32,
                 "tsdf_set_deposit": deposit_cuda.tsdf_set_deposit}
     for fn in counters.values():
@@ -2196,8 +2343,10 @@ def phase_tsdf_bench() -> dict:
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
         if stats[name]:
             raise AssertionError(f"TSDF path reported {name}={stats[name]}")
-    if min(launches.values()) <= 0:
+    if min(launches["expand_keys"], launches["tsdf_visits"]) <= 0:
         raise AssertionError(f"a kernel of the TSDF path never launched: {launches}")
+    if launches["gather_planes_f32"] or launches["tsdf_set_deposit"]:
+        raise AssertionError(f"K5 or K6 launched on the TSDF path: {launches}")
     peak = torch.cuda.max_memory_allocated()
 
     host_prep_ms, device_ms, _, _ = device_and_host_ms(mapper, batches)
@@ -2220,7 +2369,9 @@ def phase_tsdf_bench() -> dict:
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "records_per_batch": calls["records"], "depositing_per_batch": calls["depositing"],
           "kernel_ms": calls["ms"], "plain_ms": calls["plain_ms"],
-          "kernel_alone_ms": {"expand_keys": calls["k1_alone_ms"]},
+          "kernel_alone_ms": {"expand_keys": calls["k1_alone_ms"],
+                              "tsdf_visits": calls["fused"]["kernel_alone_ms"]},
+          "tsdf_visits": calls["fused"],
           "library_ms": calls["library_ms"], "versus_library": calls["versus_library"],
           "launches": launches,
           "observed_voxels": observed,
@@ -2229,6 +2380,14 @@ def phase_tsdf_bench() -> dict:
           "max_memory_allocated_bytes": peak})
     return {**calls, "launches": launches, "max_abs_err": errs}
 
+
+#: The fused TSDF kernel, for its time alone.
+TSDF_VISITS_KERNELS = ("tsdf_visits_kernel",)
+#: Operations a record of the per-visit chain: the blocked in-row sum (10
+#: adds, a subtraction, 10 maxima, the local sum, the carry's add), the
+#: visit map (~7), 11 combines of 11 operations (10 in-row levels and the
+#: carry) and the map's application (~6).
+TSDF_VISIT_OPS = 160
 
 WRAPPER_CALLS = 1000
 #: K2's and K3's kernels by name, for their time alone (the sum of the
@@ -2592,6 +2751,7 @@ def main(argv=None) -> int:
     phase_ndt_tm_frame()
     k5 = phase_k5()
     k6 = phase_k6()
+    visits = phase_tsdf_visits()
     phase_tsdf_hardware_differential()
     tsdf = phase_tsdf_bench()
     p = phase_p()
@@ -2670,12 +2830,21 @@ def main(argv=None) -> int:
             plane_build_k4_host_us_per_call=wrappers["plane_build_k4"]["host_us_per_call"],
             flag_gathers_ms=ndt["flag_gather"]["wrapper_ms"],
             flag_gathers_device_ms_alone=ndt["flag_gather"]["device_ms_alone"]),
+        # K5 and K6 on arguments derived from the fused call's; no mapper
+        # path launches them since the fused kernel below took their place.
         row("gather_planes_f32", "gather.cu", "ohm_tpu/ops/deposit_pallas.py:598", tsdf,
             max(k5["max_abs_err"], tsdf["max_abs_err"]["gather_planes_f32"]),
+            on_path="none: the TSDF path runs tsdf_visits",
             versus_library=tsdf["versus_library"]["gather_planes_f32"]),
         row("tsdf_set_deposit", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:726", tsdf,
             max(k6["max_abs_err"], tsdf["max_abs_err"]["tsdf_set_deposit"]),
+            on_path="none: the TSDF path runs tsdf_visits",
             versus_library=tsdf["versus_library"]["tsdf_set_deposit"]),
+        row("tsdf_visits", "tsdf.cu",
+            "ohm_tpu/ops/deposit_pallas.py:598 + ohm_tpu/ops/blocked.py:77,218 + "
+            "ohm_tpu/ops/deposit_pallas.py:726", tsdf,
+            max(visits["max_abs_err"], tsdf["max_abs_err"]["tsdf_visits"]),
+            **tsdf["fused"]),
         # P's path is the deposit probe's own entry point.
         row("deposit_probes", "probes.cu", "scripts/probe_deposit.py:114", p,
             p["max_abs_err"]["deposit_probes"], probe_launches=p["probe_launches"],

@@ -61,6 +61,9 @@ _SIGNATURES = {
     "ohm_gather_planes_f32": [_P, _P, _P, _I, _I, _P, _P, _P],
     # weight plane, distance plane, ids, w, d, n, sentinel, stream
     "ohm_tsdf_set_deposit": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # weight plane, distance plane, ids, w (or null), wsdf, n, sentinel,
+    # trunc, max_weight, near_zero, scratch, stream
+    "ohm_tsdf_visits": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P],
     # keys, bounds, n_parts, occupancy, hit_value, miss_value, min_value,
     # max_value, fuse_sweep, stream
     "ohm_slotgrid_deposit": [_P, _P, _I, _P, _F, _F, _F, _F, _I, _P],

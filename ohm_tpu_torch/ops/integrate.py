@@ -192,7 +192,8 @@ def apply_sample_layers(layers: dict, records: dict, b: dict, cfg: IntegrateConf
     if cfg.with_mean:
         cols.append(torch.where(hit, b["end_frac"], torch.zeros_like(b["end_frac"])))
     if cfg.with_incident:
-        inc = -b["direction"]
+        # The reference's first sum reads a denormal component as zero.
+        inc = subvoxel.flush_denormals(-b["direction"])
         cols.append(torch.where(hit, inc, torch.zeros_like(inc)))
     s_sorted, order = torch.sort(s_ids, stable=True)
     s_last, sums = segments.segment_reduce(s_sorted, torch.cat(cols, dim=1)[order], "sum")
@@ -236,4 +237,7 @@ def apply_sample_layers(layers: dict, records: dict, b: dict, cfg: IntegrateConf
         norm = subvoxel.sqrt_f32(sq[:, 0] + sq[:, 1] + sq[:, 2])
         unit = merged / torch.clamp(norm, min=1e-12)[:, None]
         unit = torch.where((norm > 1e-6)[:, None], unit, torch.zeros_like(unit))
+        # A denormal quotient is written as zero there too, so it sets
+        # neither the sign bit nor the set bit.
+        unit = subvoxel.flush_denormals(unit)
         layers["incident"][ids] = subvoxel.encode_normal(unit)

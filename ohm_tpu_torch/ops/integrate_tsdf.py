@@ -11,20 +11,20 @@ with its expand, seed-gather and pair-deposit kernels):
              with q = start_frac + (start_abs - voxel) * resolution
   compaction the group row sort cut at the host's cap, the payloads (visit
              key, weight, w*sdf) riding along
-  per visit  one stable sort on (voxel << 16 | ray_order); K5
-             (ops.gather_cuda) reads the batch-start (weight, distance) at
-             every record; the clamped weight telescopes to
-             min(w0 + prefix, max_weight), and every visit is the monotone
-             map d -> clamp((d*wc + sdf*u) / (wc + u), -trunc, trunc), whose
-             composition over a segment is one affine+clamp map
-             (ops.segments.segment_compose_affine_clamp); K6
-             (ops.deposit_cuda) stores each voxel's last (w, d) in place
+  per visit  one stable sort on (voxel << 16 | ray_order); then one call
+             (ops.tsdf_cuda.tsdf_visits, K5+K6 fused) reads the batch-start
+             (weight, distance) at every record; the clamped weight
+             telescopes to min(w0 + prefix, max_weight), and every visit is
+             the monotone map d -> clamp((d*wc + sdf*u) / (wc + u), -trunc,
+             trunc), whose composition over a segment is one affine+clamp
+             map, in ops.segments' blocked order; each voxel's last (w, d)
+             is stored in place
   per batch  (``per_visit=False``) per-voxel sums of w and w*sdf, a unique
              scatter, one blend and truncation per voxel over the arena
 
 The arena is a dict of layer tensors (mapping.arena.VoxelArena.layers); the
-two TSDF planes update in place.  K5 copies the pairs it reads before K6
-writes, and both run on the current stream in that order.  Every sort is
+two TSDF planes update in place: the per-visit call reads every voxel's
+pair before it stores that voxel.  Every sort is
 stable and every float sum goes through ops.segments, so a batch gives the
 same bits on every run.  The reference's TPU levers (the ``scatter_cap``
 deposit window and the capped seed fetch) are not ported, so
@@ -37,16 +37,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ohm_tpu_torch.ops import deposit_cuda, expand_cuda, gather_cuda
+from ohm_tpu_torch.ops import expand_cuda, tsdf_cuda
 from ohm_tpu_torch.ops.config import TsdfConfig
 from ohm_tpu_torch.ops.ddawalk import f32
 from ohm_tpu_torch.ops.integrate import group_rows, resolve_slots
-from ohm_tpu_torch.ops.segments import segment_compose_affine_clamp, segment_sums
-
-#: A visit whose new weight is below this is skipped (the reference's
-#: near-zero test, ohm/VoxelTsdfCompute.h:127).
-_NEAR_ZERO = f32(1e-5)
-_BIG = f32(3.0e38)
+from ohm_tpu_torch.ops.segments import segment_sums
+from ohm_tpu_torch.ops.tsdf_cuda import NEAR_ZERO
 
 
 def _dot3(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -149,7 +145,7 @@ def integrate_tsdf(arena: dict, b: dict, cfg: TsdfConfig) -> dict:
         order = torch.sort(ids, stable=True).indices
     ids_s = ids[order]
     wsdf_s = wsdf_all[order]
-    w_s = (ids_s != sentinel).to(torch.float32) if uniform_w else w_all[order]
+    w_s = None if uniform_w else w_all[order]
     neq = ids_s[1:] != ids_s[:-1]
     one = torch.ones(1, dtype=torch.bool, device=dev)
     first = torch.cat([one, neq])
@@ -158,27 +154,11 @@ def integrate_tsdf(arena: dict, b: dict, cfg: TsdfConfig) -> dict:
     weight, distance = arena["tsdf_weight"], arena["tsdf_distance"]
 
     if cfg.per_visit:
-        w0_s, d0_s = gather_cuda.gather_planes_f32((weight, distance), ids_s, sentinel)
-        w_run = w0_s + segment_sums(w_s, first)
-        # Running clamped weight before each visit: min(min(x, W) + u, W) ==
-        # min(x + u, W) for u >= 0, so it telescopes to one min.
-        wc_prev = torch.clamp(w_run - w_s, max=max_weight)
-        new_w_vis = wc_prev + w_s
-        alive_vis = new_w_vis >= _NEAR_ZERO  # a skipped visit is the identity
-        denom = torch.where(alive_vis, new_w_vis, torch.ones_like(new_w_vis))
-        a_map = torch.where(alive_vis, wc_prev / denom, torch.ones_like(denom))
-        b_map = torch.where(alive_vis, wsdf_s / denom, torch.zeros_like(denom))
-        lo_map = torch.where(alive_vis, torch.full_like(denom, -trunc),
-                             torch.full_like(denom, -_BIG))
-        hi_map = torch.where(alive_vis, torch.full_like(denom, trunc),
-                             torch.full_like(denom, _BIG))
-        A, Bm, LO, HI = segment_compose_affine_clamp(a_map, b_map, lo_map, hi_map, first)
-        d_k = torch.minimum(torch.maximum(A * d0_s + Bm, LO), HI)
-        w_k = torch.clamp(w_run, max=max_weight)
-        upd = last & (w_run >= _NEAR_ZERO) & real_seg
-        deposit_cuda.tsdf_set_deposit(weight, distance, ids_s, torch.where(upd, w_k, zero),
-                                      torch.where(upd, d_k, zero), sentinel)
+        tsdf_cuda.tsdf_visits(weight, distance, ids_s, w_s, wsdf_s, trunc, max_weight,
+                              sentinel)
     else:
+        if w_s is None:
+            w_s = real_seg.to(torch.float32)
         _blend_batch(weight, distance, ids_s, last & real_seg, w_s, wsdf_s, first,
                      trunc, max_weight, sentinel)
 
@@ -211,7 +191,7 @@ def _blend_batch(weight, distance, ids_s, write, w_s, wsdf_s, first, trunc: floa
     pending_w, pending_wsdf = pending
     w0, d0 = weight, distance
     new_w = w0 + pending_w
-    near_zero = new_w.abs() < _NEAR_ZERO
+    near_zero = new_w.abs() < NEAR_ZERO
     new_d = torch.where(near_zero, d0, (pending_wsdf + d0 * w0)
                         / torch.where(near_zero, torch.ones_like(new_w), new_w))
     new_d = torch.where(new_d > 0, torch.clamp(new_d, max=trunc), torch.clamp(new_d, min=-trunc))

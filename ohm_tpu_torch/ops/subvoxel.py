@@ -26,6 +26,8 @@ NORMAL_MASK = 0x3FFF
 NORMAL_SET_BIT = 1 << 30
 #: Bit 31 (negative z) as an int32.
 NORMAL_SIGN_BIT_Z = -(1 << 31)
+#: The smallest normal f32, 2^-126.
+_TINY = float(np.finfo(np.float32).tiny)
 
 
 def _scales(resolution: float) -> tuple[float, float]:
@@ -62,6 +64,13 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     it: taken in f64 and rounded once.  (torch's vectorised f32 sqrt on the
     CPU can be one ulp off.)"""
     return torch.sqrt(x.double()).to(torch.float32)
+
+
+def flush_denormals(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with each f32 below 2^-126 in magnitude read as a zero of its
+    sign, as XLA's CPU backend and the TPU read an op's denormal inputs and
+    write its denormal results; NaN and the rest stay as they are."""
+    return torch.where(x.abs() < _TINY, x * 0.0, x)  # x * 0.0 keeps the sign
 
 
 def decode_normal(packed: torch.Tensor) -> torch.Tensor:

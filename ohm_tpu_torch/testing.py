@@ -211,3 +211,89 @@ def ndt_edge_streams(name: str, sentinel: int, seed: int = 0) -> dict:
     return {"walk": walk.astype(np.int32), "bounds": bounds.astype(np.int32),
             "end": np.sort(end).astype(np.int32), "dkeys": (dkeys << 1).astype(np.int32),
             "dvals": dvals, "plane": plane}
+
+
+#: Streams at the edges of the fused TSDF per-visit update (tsdf_visits).
+TSDF_VISIT_STREAMS = ("specials", "long_runs", "saturation", "near_zero", "weighted", "short",
+                      "all_sentinel")
+#: f32 patterns a stored TSDF pair may hold: -0.0, +-inf, denormals, and NaN
+#: payloads (quiet, signalling, negative).
+TSDF_SPECIALS = np.array([0x80000000, 0x7F800000, 0xFF800000, 0x000116C2, 0x80000001,
+                          0x7FC00000, 0x7FA00001, 0xFFC12345], np.uint32).view(np.float32)
+
+
+def tsdf_visit_stream(name: str, sentinel: int, n_arena: int | None = None,
+                      seed: int = 0) -> dict:
+    """The per-visit update's inputs for ``name`` (TSDF_VISIT_STREAMS), as
+    numpy arrays and f32 values: ``ids`` ascending (i32, voxel runs, then a
+    sentinel tail, so no length is a multiple of 1024), ``w`` (f32, or None
+    for the uniform weighting), ``wsdf`` (f32, w * sdf with sdf beyond the
+    truncation band both ways), the stored planes ``weight`` and
+    ``distance`` (f32[n_arena], default sentinel + 1), ``trunc`` and
+    ``max_weight``:
+
+      specials      uniform weights, runs of 1-8 visits; the visited voxels'
+                    stored pairs hold TSDF_SPECIALS (each plane on its own)
+      long_runs     uniform, runs of 1023 to 3,500 visits crossing one or
+                    several 1024-record rows, among short ones
+      saturation    max_weight 3: stored weights at and below it, runs of
+                    1-12 visits and one of 1,500, so the weight saturates
+                    in the middle of a run
+      near_zero     weights 0, -0.0 and below, at and above 1e-5: skipped
+                    visits and voxels whose weight stays below 1e-5
+      weighted      weights in [0, 2] (a tenth exactly 0), a run of 2,500
+      short         uniform, 700 records in all
+      all_sentinel  900 sentinel records"""
+    rng = np.random.default_rng(seed)
+    n_arena = sentinel + 1 if n_arena is None else n_arena
+    trunc, max_weight = 0.1, 1e4
+    if name == "all_sentinel":
+        lengths = np.zeros(0, np.int64)
+    elif name == "long_runs":
+        lengths = np.concatenate([rng.integers(1, 6, 200), [1023, 1024, 1025], rng.integers(1, 6, 50),
+                                  [2100, 3500], rng.integers(1, 6, 100)])
+    elif name == "saturation":
+        lengths = np.concatenate([rng.integers(1, 13, 300), [1500], rng.integers(1, 13, 100)])
+    elif name == "weighted":
+        lengths = np.concatenate([rng.integers(1, 9, 400), [2500], rng.integers(1, 9, 200)])
+    elif name == "short":
+        lengths = rng.integers(1, 6, 400)
+    else:  # specials, near_zero
+        lengths = rng.integers(1, 9, 600)
+    if name == "short":
+        lengths = lengths[np.cumsum(lengths) <= 680]
+    voxels = np.sort(rng.choice(sentinel, lengths.size, replace=False))
+    n_tail = 900 if name == "all_sentinel" else 20 if name == "short" else 37
+    ids = np.concatenate([np.repeat(voxels, lengths), np.full(n_tail, sentinel)]).astype(np.int32)
+    n = ids.size
+    live = ids != sentinel
+
+    weight = np.zeros(n_arena, np.float32)
+    distance = np.zeros(n_arena, np.float32)
+    seen = rng.random(voxels.size) < 0.7
+    weight[voxels[seen]] = rng.uniform(0.5, 50.0, int(seen.sum()))
+    distance[voxels[seen]] = rng.uniform(-trunc, trunc, int(seen.sum()))
+    if name == "specials":
+        k = voxels[rng.permutation(voxels.size)]
+        weight[k[:200]] = TSDF_SPECIALS[np.arange(200) % TSDF_SPECIALS.size]
+        distance[k[100:300]] = TSDF_SPECIALS[np.arange(200) % TSDF_SPECIALS.size]
+    if name == "saturation":
+        max_weight = 3.0
+        weight[voxels] = np.array([0.0, 1.0, 2.0, 2.5, 2.9, 3.0],
+                                  np.float32)[rng.integers(0, 6, voxels.size)]
+
+    w = None
+    if name == "near_zero":
+        choices = np.array([0.0, -0.0, 1e-7, 3e-6, 9.99e-6, 1e-5, 1.2e-5, 0.5], np.float32)
+        w = choices[rng.integers(0, choices.size, n)]
+        weight[voxels] = np.where(rng.random(voxels.size) < 0.5, 0.0, weight[voxels])
+    elif name == "weighted":
+        w = rng.uniform(0.0, 2.0, n).astype(np.float32)
+        w[rng.random(n) < 0.1] = 0.0
+    if w is not None:
+        w[~live] = 0.0
+    sdf = rng.uniform(-2.5 * trunc, 2.5 * trunc, n).astype(np.float32)
+    wsdf = sdf if w is None else w * sdf
+    return {"ids": ids, "w": w, "wsdf": wsdf.astype(np.float32), "weight": weight,
+            "distance": distance, "trunc": float(np.float32(trunc)),
+            "max_weight": float(np.float32(max_weight))}

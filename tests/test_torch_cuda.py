@@ -12,8 +12,10 @@ against the plain prelude on every wire layout and on edge rays; the fused
 NDT flag gather against its plain version at the NDT-OM arena; the
 run-length deposits K2 and K3 on the streams their design makes risky
 (ohm_tpu_torch.testing's edge streams), bit for bit and the same bits on a
-second run; and the K1, K2 and K4 wrappers issuing no PyTorch op but their
-outputs' allocations.
+second run; the fused TSDF per-visit update (K5+K6) on its edge streams,
+bit for bit and the same bits on a second run; and the K1, K2, K4 and
+fused TSDF wrappers issuing no PyTorch op but their outputs' or scratch
+allocations.
 TorchNdtMap, TorchTsdfMap and
 TorchRayMapper with the side layers on the card must agree with themselves
 on the CPU and give the same bits on every run.
@@ -47,8 +49,10 @@ from ohm_tpu_torch.ops.slotgrid_cuda import (part_bounds, scatter_deposit, slotg
                                              slotgrid_deposit_reference)
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit as pd
-from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, deposit_edge_stream,
-                                   dispatched_ops, edge_rays, ndt_edge_streams, ndt_flag_arena)
+from ohm_tpu_torch.ops.tsdf_cuda import tsdf_visits, tsdf_visits_reference
+from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, TSDF_VISIT_STREAMS,
+                                   deposit_edge_stream, dispatched_ops, edge_rays,
+                                   ndt_edge_streams, ndt_flag_arena, tsdf_visit_stream)
 
 pytestmark = pytest.mark.cuda
 
@@ -405,6 +409,41 @@ def test_tsdf_deposit_kernel_matches_plain(bench_batch):
     for a, r, before in zip(out, ref, (weight, distance)):
         assert torch.equal(a.view(torch.int32), r.view(torch.int32))
         assert int((a.view(torch.int32) != before.view(torch.int32)).sum()) > 100_000
+
+
+@pytest.mark.parametrize("name", TSDF_VISIT_STREAMS)
+def test_tsdf_visits_kernel_matches_plain_on_edge_streams(bench_batch, name):
+    """K5+K6 fused against its plain version on the edge streams over a
+    bench-sized arena, both planes bit for bit, and the same bits on a
+    second run; the wrapper counts one launch a call."""
+    _, b, cfg = bench_batch
+    dev = b["start_abs"].device
+    s = tsdf_visit_stream(name, cfg.sentinel, seed=14)
+    ids, wsdf = (torch.from_numpy(s[k]).to(dev) for k in ("ids", "wsdf"))
+    w = None if s["w"] is None else torch.from_numpy(s["w"]).to(dev)
+    planes = tuple(torch.from_numpy(s[k]).to(dev) for k in ("weight", "distance"))
+    tsdf_visits.launches = 0
+    outs = []
+    for fn in (tsdf_visits, tsdf_visits, tsdf_visits_reference):
+        weight, distance = (p.clone() for p in planes)
+        fn(weight, distance, ids, w, wsdf, s["trunc"], s["max_weight"], cfg.sentinel)
+        outs.append((weight, distance))
+    torch.cuda.synchronize()
+    assert tsdf_visits.launches == 2
+    for a, a2, r, before in zip(*outs, planes):
+        assert torch.equal(a.view(torch.int32), r.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+    stored = int((outs[0][0].view(torch.int32) != planes[0].view(torch.int32)).sum())
+    assert stored > 100 if name != "all_sentinel" else stored == 0
+
+
+def test_tsdf_visits_wrapper_issues_only_its_scratch(bench_batch):
+    _, b, cfg = bench_batch
+    dev = b["start_abs"].device
+    s = tsdf_visit_stream("weighted", cfg.sentinel, seed=15)
+    args = [torch.from_numpy(s[k]).to(dev) for k in ("weight", "distance", "ids", "w", "wsdf")]
+    ops = dispatched_ops(lambda: tsdf_visits(*args, s["trunc"], s["max_weight"], cfg.sentinel))
+    assert ops == ["empty"], ops
 
 
 def _tsdf_run(device):

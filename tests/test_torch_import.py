@@ -180,11 +180,14 @@ def test_what_is_not_ported_under_ndt_raises():
 def test_build_takes_every_cuda_source_for_hopper():
     names = sorted(os.path.basename(p) for p in _build.sources())
     assert names == ["common.cu", "deposit.cu", "expand.cu", "gather.cu", "probes.cu",
-                     "slotgrid.cu"]
+                     "slotgrid.cu", "tsdf.cu"]
     sig = _build._SIGNATURES
-    assert set(sig) >= {"ohm_gather_planes_f32", "ohm_tsdf_set_deposit",
+    assert set(sig) >= {"ohm_gather_planes_f32", "ohm_tsdf_set_deposit", "ohm_tsdf_visits",
                         "ohm_slotgrid_deposit", "ohm_probe_onehot_mma"}
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # K5+K6 fused: planes, ids, w (or null), wsdf, n, sentinel, trunc,
+    # max_weight, near_zero, scratch, stream.
+    assert sig["ohm_tsdf_visits"] == [P] * 5 + [I, I, F, F, F, P, P]
     # K4 and its fused flag gather: (planes..., ids, n, [threshold,] sentinel, out, stream).
     assert sig["ohm_gather_plane"] == [P, P, I, I, P, P]
     assert sig["ohm_gather_ndt_flags"] == [P, P, P, I, I, I, P, P]

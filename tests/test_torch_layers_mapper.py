@@ -257,6 +257,41 @@ def test_layers_match_reference(ports, refs, name, mode):
         assert port_stats[k] == 0, k
 
 
+def test_incident_normal_reads_denormal_directions_as_zero():
+    """All four layers on two batches of tests/test_torch_mapper.py's
+    denormal-direction rays (np.random.default_rng(3)), the port on the CPU
+    against TpuRayMapper on the rayflow wire (split-phase apply).  XLA reads
+    a denormal direction component as a zero of its sign, so such a ray
+    neither sets the normal's negative-z bit nor counts as a nonzero z: the
+    packed normals are held bit for bit, the other layers as in
+    test_layers_match_reference, the stats equal."""
+    from test_torch_mapper import _denormal_rays
+
+    rng = np.random.default_rng(3)
+    batches = [_denormal_rays(rng), _denormal_rays(rng)]
+    stamps = [100.0 + i + np.arange(len(b) // 2) * 1e-3 for i, b in enumerate(batches)]
+    layers = LAYER_SETS["all"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OHM_FUSED", "0")
+        m = OccupancyMap(resolution=0.1, region_voxel_dims=8, flags=_flags(layers, MapFlag))
+        ref = TpuRayMapper(m, capacity=64, validate=True, rayflow=True, scatter_cap=0)
+        for rays, ts in zip(batches, stamps):
+            ref.integrate_rays(rays, timestamps=ts)
+        ref.sync_voxels()
+    pm = PortMap(resolution=0.1, region_voxel_dims=8, flags=_flags(layers, PortMapFlag))
+    port = TorchRayMapper(pm, capacity=64, validate=True, device="cpu")
+    for rays, ts in zip(batches, stamps):
+        port.integrate_rays(rays, timestamps=ts)
+    port.sync_voxels()
+    ref_layers, port_layers = _host_layers(m), _host_layers(pm)
+    _compare_maps(ref_layers, port_layers)
+    normals = [k for k in ref_layers if k[2] == "packed_normal"]
+    assert sum(int(np.count_nonzero(ref_layers[k])) for k in normals) > 20
+    for key in normals:
+        assert np.array_equal(ref_layers[key], port_layers[key]), key
+    assert ref.stats == port.stats
+
+
 def test_layers_hold_values(ports):
     """Every layer was written, and the last batch's touch times are an
     unsigned maximum over values on both sides of 2^31."""

@@ -10,6 +10,14 @@
   the affine-clamp composition (ops.segments) against
       ohm_tpu.ops.blocked's, within 1e-6, over several 1024-wide rows with
       segments that cross row boundaries
+  K5+K6 fused (ops.tsdf_cuda.tsdf_visits): its plain version against the
+      JAX package's per-visit chain (the two Pallas kernels in interpret
+      mode around blocked.segment_sums and segment_compose_affine_clamp,
+      jitted, as ohm_tpu/ops/integrate_tsdf.py:300-404 runs it) on
+      ohm_tpu_torch.testing's edge streams: weights bit for bit, distances
+      within atol = rtol = 1e-5 (XLA's CPU backend contracts the maps'
+      products and sums into FMAs); the wrapper on the CPU is its plain
+      version
 
 Shapes follow tests/test_torch_ndt_kernels.py: 16 slots of 8^3 voxels."""
 
@@ -17,11 +25,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ohm_tpu.ops import blocked, deposit_pallas
 from ohm_tpu.ops.integrate import IntegrateConfig as RefConfig
-from ohm_tpu_torch.ops import deposit_cuda, gather_cuda, segments
+from ohm_tpu_torch.ops import deposit_cuda, gather_cuda, segments, tsdf_cuda
+from ohm_tpu_torch.testing import TSDF_SPECIALS, TSDF_VISIT_STREAMS, tsdf_visit_stream
 
 CFG = RefConfig(resolution=0.1, region_shift=3, capacity=16, max_steps=64, pallas_deposit=2)
 SPECIALS = np.array([-0.0, np.inf, -np.inf, 1e-40, -1e-42], np.float32)
@@ -162,3 +172,105 @@ def test_affine_clamp_composition_matches_blocked():
     A, B, LO, HI = port
     port_d = torch.minimum(torch.maximum(A * torch.from_numpy(d0) + B, LO), HI).numpy()
     np.testing.assert_allclose(port_d, ref_d, atol=1e-6)
+
+
+N_ARENA = (CFG.capacity + 1) * CFG.voxels_per_region
+
+
+@jax.jit
+def _jax_visits(weight, distance, ids, w, wsdf, trunc, max_weight):
+    """The JAX package's per-visit chain (ohm_tpu/ops/integrate_tsdf.py:
+    300-404 with its kernels, which have no function of their own there)."""
+    first = jnp.concatenate([jnp.array([True]), ids[1:] != ids[:-1]])
+    last = jnp.concatenate([ids[1:] != ids[:-1], jnp.array([True])])
+    w0_s, d0_s = deposit_pallas.gather_planes_f32((weight, distance), ids, CFG, interpret=True)
+    w_run = w0_s + blocked.segment_sums(w, first)
+    wc_prev = jnp.minimum(w_run - w, max_weight)
+    new_w_vis = wc_prev + w
+    alive_vis = new_w_vis >= jnp.float32(1e-5)
+    fbig = jnp.float32(3.0e38)
+    denom = jnp.where(alive_vis, new_w_vis, 1.0)
+    a_map = jnp.where(alive_vis, wc_prev / denom, 1.0)
+    b_map = jnp.where(alive_vis, wsdf / denom, 0.0)
+    lo_map = jnp.where(alive_vis, -trunc, -fbig)
+    hi_map = jnp.where(alive_vis, trunc, fbig)
+    A, Bm, LO, HI = blocked.segment_compose_affine_clamp(a_map, b_map, lo_map, hi_map, first)
+    d_k = jnp.minimum(jnp.maximum(A * d0_s + Bm, LO), HI)
+    w_k = jnp.minimum(w_run, max_weight)
+    upd = last & (w_run >= jnp.float32(1e-5)) & (ids != CFG.sentinel)
+    return deposit_pallas.tsdf_set_deposit(weight, distance, ids, jnp.where(upd, w_k, 0.0),
+                                           jnp.where(upd, d_k, 0.0), CFG, interpret=True)
+
+
+def _port_visits(s, fn):
+    weight, distance = torch.from_numpy(s["weight"].copy()), torch.from_numpy(s["distance"].copy())
+    w = None if s["w"] is None else torch.from_numpy(s["w"])
+    out = fn(weight, distance, torch.from_numpy(s["ids"]), w, torch.from_numpy(s["wsdf"]),
+             s["trunc"], s["max_weight"], CFG.sentinel)
+    assert out[0] is weight and out[1] is distance  # in place
+    return weight.numpy(), distance.numpy()
+
+
+@pytest.mark.parametrize("name", TSDF_VISIT_STREAMS)
+def test_visits_plain_matches_the_jax_chain(name):
+    s = tsdf_visit_stream(name, CFG.sentinel, N_ARENA, seed=1)
+    w = s["w"] if s["w"] is not None else (s["ids"] != CFG.sentinel).astype(np.float32)
+    ref_w, ref_d = (np.asarray(x) for x in _jax_visits(
+        *(jnp.asarray(x) for x in (s["weight"], s["distance"], s["ids"], w, s["wsdf"])),
+        jnp.float32(s["trunc"]), jnp.float32(s["max_weight"])))
+    port_w, port_d = _port_visits(s, tsdf_cuda.tsdf_visits_reference)
+    assert np.array_equal(ref_w.view(np.uint32), port_w.view(np.uint32)), \
+        np.flatnonzero(ref_w.view(np.uint32) != port_w.view(np.uint32))[:10]
+    np.testing.assert_allclose(port_d, ref_d, atol=1e-5, rtol=1e-5)
+    stored = port_w.view(np.uint32) != s["weight"].view(np.uint32)
+    assert stored.sum() > 100 if name != "all_sentinel" else not stored.any()
+    assert port_w[stored].max(initial=0) <= s["max_weight"]
+    # Distances stay in the band but where a stored NaN seed propagates.
+    assert np.abs(port_d[stored & ~np.isnan(port_d)]).max(initial=0) <= s["trunc"]
+
+
+def _runs(ids):
+    """(start, length) of each voxel's run below the sentinel."""
+    starts = np.flatnonzero(np.concatenate([[True], ids[1:] != ids[:-1]]))
+    lengths = np.diff(np.concatenate([starts, [ids.size]]))
+    live = ids[starts] != CFG.sentinel
+    return starts[live], lengths[live]
+
+
+def test_visit_streams_reach_their_edges():
+    """Each stream holds the case it is named for; none is a whole number
+    of 1024-record rows."""
+    streams = {name: tsdf_visit_stream(name, CFG.sentinel, N_ARENA, seed=1)
+               for name in TSDF_VISIT_STREAMS}
+    assert all(s["ids"].size % 1024 for s in streams.values())
+    s = streams["specials"]
+    voxels = np.unique(s["ids"][s["ids"] != CFG.sentinel])
+    for plane in ("weight", "distance"):
+        held = set(s[plane][voxels].view(np.uint32).tolist())
+        assert set(TSDF_SPECIALS.view(np.uint32).tolist()) <= held, plane
+    starts, lengths = _runs(streams["long_runs"]["ids"])
+    crossings = (starts + lengths - 1) // 1024 - starts // 1024
+    assert (crossings >= 1).sum() >= 3 and crossings.max() >= 3
+    s = streams["saturation"]
+    starts, lengths = _runs(s["ids"])
+    w0 = s["weight"][s["ids"][starts]]
+    assert ((w0 < s["max_weight"]) & (w0 + lengths > s["max_weight"] + 1)).sum() > 20
+    w = streams["near_zero"]["w"]
+    assert (w < 1e-5).mean() > 0.4 and (w.view(np.uint32) == 0x80000000).any()
+    assert (w >= 1e-5).any()
+    s = streams["weighted"]
+    assert (s["w"] == 0).mean() > 0.05 and _runs(s["ids"])[1].max() > 2048
+    assert streams["short"]["ids"].size < 1024
+    assert (streams["all_sentinel"]["ids"] == CFG.sentinel).all()
+
+
+def test_visits_wrapper_on_cpu_is_its_plain_version():
+    """On CPU tensors the wrapper runs the plain version, counting no launch."""
+    tsdf_cuda.tsdf_visits.launches = 0
+    for name in TSDF_VISIT_STREAMS:
+        s = tsdf_visit_stream(name, CFG.sentinel, N_ARENA, seed=2)
+        a = _port_visits(s, tsdf_cuda.tsdf_visits)
+        b = _port_visits(s, tsdf_cuda.tsdf_visits_reference)
+        for x, y in zip(a, b):
+            assert np.array_equal(x.view(np.uint32), y.view(np.uint32)), name
+    assert tsdf_cuda.tsdf_visits.launches == 0
