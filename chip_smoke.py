@@ -92,9 +92,11 @@ exit code is not 0 and no result line is printed:
                16-byte boundary refused; its time alone
   wrapper_cost the K1 wrapper (keys, traversal, voxel planes), K2, K3, K4
                beside index_select, the flag plane's build + K4 and the fused
-               flag gather, each on fixed inputs (bench.py's first box batch;
+               flag gather, and the deposit probe's slot-grid deposit and five
+               probes, each on fixed inputs (bench.py's first box batch;
                an NDT-OM arena with 600,000 sorted ids; K2's and K3's
-               synthetic streams): host us a call over calls without a
+               synthetic streams; the probe's stream and inputs): host us a
+               call over calls without a
                synchronize, CUDA-event ms a call, the kernel alone, the device
                time and operations of the whole call (torch.profiler) and the
                device memory a call allocates.  --wrappers-of DIR prints only
@@ -223,16 +225,21 @@ Each phase's seconds follow it on a "phase_seconds" line.
                deposits and K3 on one bench-shaped stream (1,250,304 keys,
                512 slots, 320 live), every launch counted
   p_probes     each probe's kernel against its plain version and its expected
-               array, bit for bit
+               array, bit for bit; the one-hot product on random records (1,
+               4 and 8 rows of 128, and 512 records in one cell) against its
+               plain version and bincount
   p_slotgrid   the slot-grid kernel against its plain version at full size
-               and on the edge streams, fused and unfused, bit for bit, and
-               K3 against its plain version on the same streams (and two
-               runs); the fused result against the f64 reference (f32
-               roundings, no gate), and bit for bit against scatter_deposit
-               and K3
-  p_times      the slot-grid kernel beside its plain version, K3,
-               scatter_deposit and onehot_deposit on the same stream, each
-               probe beside its plain version, and their bounds
+               and on the edge streams (and a ragged tail), fused and
+               unfused, bit for bit, and against a second run; K3 against
+               its plain version on the same streams (and two runs); the
+               fused result against the f64 reference (f32 roundings, no
+               gate), and bit for bit against scatter_deposit and K3
+  p_times      the slot-grid kernel alone and as a call beside its plain
+               version, K3, scatter_deposit and onehot_deposit on the same
+               stream, its byte bound and its sector design bound; each
+               probe alone beside an empty kernel (the launch floor) and its
+               library call, and as a call beside its plain version and its
+               library call, in alternated turns
 
 Then one JSON line of the kernels (each with its bound: the bytes it must
 move over 3.35 TB/s or its operations over 67 TFLOP/s (bf16 matrix work
@@ -284,8 +291,9 @@ from ohm_tpu_torch.ops.integrate import (apply_records, apply_sample_layers, exp
                                          expand_walk)
 from ohm_tpu_torch.ops.wire import decode, unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit
-from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, TSDF_SPECIALS,
-                                   TSDF_VISIT_STREAMS, deposit_edge_stream, dispatched_ops,
+from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, PROBE_LIBRARY_CALLS,
+                                   TSDF_SPECIALS, TSDF_VISIT_STREAMS, deposit_edge_stream,
+                                   dispatched_ops,
                                    edge_rays, ndt_edge_streams, ndt_flag_arena,
                                    tsdf_visit_stream)
 
@@ -562,14 +570,30 @@ def host_us_per_call(fn, calls: int = 1000) -> float:
     return seconds / calls * 1e6
 
 
-def alternated_ms(fns: dict, turns: int = 6) -> dict:
-    """CUDA-event ms per call of each of ``fns`` in alternated turns (the
-    order reversed every other turn); the median and every turn's time."""
+def device_ops_per_call(fn, tries: int = 4) -> float:
+    """device_profile's device operations a call, the most over ``tries``
+    traces: a trace that lost rows counts fewer (device_profile's note)."""
+    return max(device_profile(fn)["device_ops"] for _ in range(tries))
+
+
+def device_alone_ms(fn_kernel: tuple) -> float | None:
+    """kernel_device_ms of a (fn, kernel) pair; None where the trace lost
+    every row it needed (device_profile's note)."""
+    return kernel_device_ms(*fn_kernel) or None
+
+
+def alternated_ms(fns: dict, turns: int = 6, measure=cuda_ms) -> dict:
+    """ms per call of each of ``fns`` by ``measure`` (by default CUDA events
+    over the call; ``device_alone_ms`` takes (fn, kernel) pairs) in
+    alternated turns (the order reversed every other turn); the median and
+    every turn's time.  A turn that read None is left out of the median."""
     times = {name: [] for name in fns}
     for t in range(turns):
         for name in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
-            times[name].append(cuda_ms(fns[name]))
-    return {name: {"median_ms": float(np.median(v)), "turns_ms": v} for name, v in times.items()}
+            times[name].append(measure(fns[name]))
+    median = lambda v: float(np.median(v)) if v else None  # noqa: E731
+    return {name: {"median_ms": median([x for x in v if x is not None]), "turns_ms": v}
+            for name, v in times.items()}
 
 
 def aten_cuda_max_semantics() -> dict:
@@ -2993,6 +3017,13 @@ WRAPPER_CALLS = 1000
 #: K2's and K3's kernels by name, for their time alone (the sum of the
 #: kernels a call launches).
 K2_KERNELS = ("run_deposit_kernel",)
+# The deposit probes' kernels (csrc/probes.cu), and the empty kernel timed
+# beside them as the launch floor.
+PROBE_KERNELS = {"vmem_scatter_add": "scatter_add_probe", "take_along_axis": "take_along_probe",
+                 "dynamic_fori": "dynamic_loop_probe", "dyn_offset_dma": "bulk_copy_probe",
+                 "onehot_mxu_dot": "onehot_mma_probe"}
+EMPTY_KERNEL = "empty_probe"
+SLOTGRID_KERNEL = "slotgrid_run_kernel"
 K3_KERNELS = ("end_table_kernel", "ndt_run_deposit_kernel")
 
 
@@ -3024,7 +3055,8 @@ def wrapper_inputs() -> dict:
     ids over 320 live slots and 40,000 sentinels; for K2, the 512-slot
     arena and sorted ~1.1M-key stream of phase_k2; for K3, an NDT-OM arena
     with 600,000 walk keys (a fifth masked), 8192 end keys and a sparse
-    delta, as the NDT-OM path gives it."""
+    delta, as the NDT-OM path gives it; the deposit probe's stream
+    (make_stream, 1,250,304 keys over 512 slots) and its probes' inputs."""
     rng = np.random.default_rng(SEED)
     b, cfg = _wire_batch(box_scene_rays(RAYS_PER_BATCH, rng))
     ncfg = _ndt_config_at_bench_shape()
@@ -3034,12 +3066,35 @@ def wrapper_inputs() -> dict:
     occ, count, ids = (torch.from_numpy(x).cuda() for x in (occ, count.view(np.int32), ids))
     k2_occ, k2_keys = _bench_arena_and_stream(cfg, rng)
     k3_occ, walk, end, sparse, _, bounds = _ndt_arena_and_streams(ncfg, rng, n_walk=600_000)
+    c = probe_deposit.C
+    p_keys = torch.from_numpy(probe_deposit.make_stream()).cuda()
+    p_occ = torch.from_numpy(probe_deposit.initial_occupancy()[:c * probe_deposit.V]).cuda()
     return {"b": b, "cfg": cfg, "occ": occ, "count": count, "ids": ids, "sentinel": n,
             "threshold": 3, "k2": (k2_occ, k2_keys, cfg),
-            "k3": (k3_occ, walk, end, sparse, ncfg, bounds)}
+            "k3": (k3_occ, walk, end, sparse, ncfg, bounds),
+            "p": (p_keys, p_occ, c), "probes": probes_cuda.probe_inputs("cuda")}
 
 
-def phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs: dict, root: str) -> dict:
+def p_wrapper_cost(slotgrid_mod, probes_mod, inputs: dict) -> dict:
+    """call_cost of the deposit probe's wrappers in ``slotgrid_mod`` and
+    ``probes_mod`` (WRAPPER_CALLS / 10 calls): the slot-grid deposit with
+    the fused sweep on the probe's stream, on its own copy of the arena,
+    and each probe on its inputs."""
+    keys, occ, c = inputs["p"]
+    occ = occ.clone()
+    sweep = probe_deposit.SWEEP
+    out = {"slotgrid_deposit": call_cost(
+        lambda: slotgrid_mod.slotgrid_deposit(keys, occ, c, **sweep), "slotgrid",
+        WRAPPER_CALLS // 10)}
+    for name, fn in probes_mod.PROBES.items():
+        args = inputs["probes"][name]
+        out[f"probe_{name}"] = call_cost(lambda: fn(*args), PROBE_KERNELS[name],
+                                         WRAPPER_CALLS // 10)
+    return out
+
+
+def phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs: dict, root: str,
+                       p_mods: tuple) -> dict:
     """call_cost of the K1, K2, K3 and K4 wrappers of ``expand_mod``,
     ``deposit_mod`` and ``gather_mod`` (this checkout's, or another's under
     --wrappers-of) on ``inputs``: K1 with keys, traversal and voxel planes
@@ -3047,7 +3102,8 @@ def phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs: dict, root: 
     does not fill the launch queue); K2 and K3 (WRAPPER_CALLS / 10), each
     on its own copy of its arena; K4 on the built flag plane beside
     index_select; the plane build + K4 (WRAPPER_CALLS / 10); and the fused
-    flag gather where the module has one."""
+    flag gather where the module has one; then p_wrapper_cost of
+    ``p_mods`` (its slot-grid and probe modules)."""
     b, cfg = inputs["b"], inputs["cfg"]
     occ, count, ids = inputs["occ"], inputs["count"], inputs["ids"]
     n, thr = inputs["sentinel"], inputs["threshold"]
@@ -3085,6 +3141,7 @@ def phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs: dict, root: 
         out["gather_ndt_flags"] = call_cost(
             lambda: gather_mod.gather_ndt_flags(occ, count, ids, thr, n), "gather",
             WRAPPER_CALLS)
+    out.update(p_wrapper_cost(*p_mods, inputs))
     emit({"phase": "wrapper_cost", "root": os.path.abspath(root),
           "package": os.path.dirname(os.path.dirname(os.path.abspath(expand_mod.__file__))),
           **out})
@@ -3105,10 +3162,12 @@ def wrappers_of(root: str) -> int:
     expand_mod = importlib.import_module("ohm_tpu_torch.ops.expand_cuda")
     gather_mod = importlib.import_module("ohm_tpu_torch.ops.gather_cuda")
     deposit_mod = importlib.import_module("ohm_tpu_torch.ops.deposit_cuda")
+    p_mods = tuple(importlib.import_module(f"ohm_tpu_torch.ops.{m}")
+                   for m in ("slotgrid_cuda", "probes_cuda"))
     if not expand_mod.__file__.startswith(os.path.abspath(root)):
         raise AssertionError(f"imported {expand_mod.__file__}, not the port under {root}")
     importlib.import_module("ohm_tpu_torch.ops._build").load()
-    phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs, root)
+    phase_wrapper_cost(expand_mod, gather_mod, deposit_mod, inputs, root, p_mods)
     return 0
 
 
@@ -3132,9 +3191,19 @@ def probe_work() -> dict:
     return out
 
 
+def onehot_cases() -> dict:
+    """The one-hot probe's random inputs on the card: 1, 4 and 8 rows of 128
+    records in [0, 32768) (seeds 1, 4, 8), and 512 records in one cell."""
+    cases = {f"rows_{rows}": np.random.default_rng(rows).integers(0, probe_deposit.V, (rows, 128))
+             for rows in (1, 4, 8)}
+    cases["one_cell"] = np.full((4, 128), 12_345)
+    return {k: torch.from_numpy(v.astype(np.int32)).cuda() for k, v in cases.items()}
+
+
 def check_probes(found: dict) -> dict:
     """Each probe's kernel against its plain version and its expected array,
-    bit for bit, beside what the probe path reported."""
+    bit for bit, beside what the probe path reported; the one-hot product on
+    onehot_cases against its plain version and bincount."""
     inputs = probes_cuda.probe_inputs("cuda")
     expected = probes_cuda.expected_outputs()
     rows = {}
@@ -3147,9 +3216,22 @@ def check_probes(found: dict) -> dict:
                       "max_abs_err": float((out_k.double() - out_p.double()).abs().max()),
                       "bit_identical": bool(same),
                       "equals_expected": bool(np.array_equal(out_k.cpu().numpy(), expected[name]))}
-    emit({"phase": "p_probes", "tolerance": 0, "probes": rows})
+    onehot = {}
+    for case, v in onehot_cases().items():
+        out_k = probes_cuda.onehot_mma(v)
+        out_p = probes_cuda.onehot_mma_reference(v)
+        out_l = PROBE_LIBRARY_CALLS["onehot_mxu_dot"](v)
+        torch.cuda.synchronize()
+        onehot[case] = {"records": v.numel(), "largest_cell": float(out_k.max()),
+                        "bit_identical": bool(same_bits(out_k, out_p)),
+                        "equals_bincount": bool(same_bits(out_k, out_l))}
+        rows["onehot_mxu_dot"]["max_abs_err"] = max(
+            rows["onehot_mxu_dot"]["max_abs_err"], float((out_k - out_p).abs().max()))
+    emit({"phase": "p_probes", "tolerance": 0, "probes": rows, "onehot_random": onehot})
     bad = {n: r for n, r in rows.items()
            if r["status"] != "OK" or not (r["bit_identical"] and r["equals_expected"])}
+    bad.update({c: r for c, r in onehot.items()
+                if not (r["bit_identical"] and r["equals_bincount"])})
     if bad:
         raise AssertionError(f"a deposit probe failed or differs from its plain version: {bad}")
     return rows
@@ -3172,41 +3254,50 @@ def k3_on_probe_stream(keys, occ, c: int) -> dict:
             "k3_max_abs_err": finite_err(out_k, out_p)}
 
 
-def check_slotgrid(keys, occ_flat, c: int) -> dict:
-    """The slot-grid kernel against its plain version on the card, bit for
-    bit, fused and unfused, at full size and on the edge streams, and K3
-    against its plain version on the same streams; the fused result against
-    the f64 reference (f32 roundings, no gate), the scatter yardstick and
-    K3 (bit for bit)."""
-    n_vox = c * probe_deposit.V
-    bounds = slotgrid_cuda.part_bounds(keys, c)
-    rows, errs, fused = {}, [], None
+def slotgrid_against_plain(keys, occ, c: int) -> tuple[bool, float]:
+    """The slot-grid kernel on ``keys`` against its plain version and a
+    second run, fused and unfused: (all bit-identical, largest finite
+    error)."""
+    same, err = True, 0.0
     for fuse in (True, False):
-        out_k = slotgrid_cuda.slotgrid_deposit(keys, occ_flat.clone(), bounds, fuse_sweep=fuse,
-                                               **probe_deposit.SWEEP)
-        out_p = slotgrid_cuda.slotgrid_deposit_reference(keys, occ_flat.clone(), bounds,
-                                                         fuse_sweep=fuse, **probe_deposit.SWEEP)
+        kw = {"fuse_sweep": fuse, **probe_deposit.SWEEP}
+        out_k = slotgrid_cuda.slotgrid_deposit(keys, occ.clone(), c, **kw)
+        out_2 = slotgrid_cuda.slotgrid_deposit(keys, occ.clone(), c, **kw)
+        out_p = slotgrid_cuda.slotgrid_deposit_reference(keys, occ.clone(), c, **kw)
         torch.cuda.synchronize()
-        errs.append(finite_err(out_k, out_p))
-        rows["fused" if fuse else "counts"] = {"max_abs_err": errs[-1],
-                                               "bit_identical": same_bits(out_k, out_p)}
-        fused = out_k if fuse else fused
+        same = same and same_bits(out_k, out_p) and same_bits(out_k, out_2)
+        err = max(err, finite_err(out_k, out_p))
+    return bool(same), err
+
+
+def check_slotgrid(keys, occ_flat, c: int) -> dict:
+    """The slot-grid kernel against its plain version on the card and a
+    second run of itself, bit for bit, fused and unfused, at full size, on
+    the edge streams and on a ragged tail (keys below 0 and past the slots,
+    a length no multiple of 4); K3 against its plain version on the same
+    streams; the fused result against the f64 reference (f32 roundings, no
+    gate), the scatter yardstick and K3 (bit for bit)."""
+    n_vox = c * probe_deposit.V
+    rows, errs = {}, []
+    same, err = slotgrid_against_plain(keys, occ_flat, c)
+    rows["bench"] = {"bit_identical": same, "max_abs_err": err}
+    errs.append(err)
     for name in probe_deposit.EDGE_STREAMS:
         ek, eo, ec = probe_deposit.edge_stream(name)
         ek, eo = torch.from_numpy(ek).cuda(), torch.from_numpy(eo).cuda()
-        eb = slotgrid_cuda.part_bounds(ek, ec)
-        same = True
-        for fuse in (True, False):
-            out_k = slotgrid_cuda.slotgrid_deposit(ek, eo.clone(), eb, fuse_sweep=fuse,
-                                                   **probe_deposit.SWEEP)
-            out_p = slotgrid_cuda.slotgrid_deposit_reference(ek, eo.clone(), eb, fuse_sweep=fuse,
-                                                             **probe_deposit.SWEEP)
-            torch.cuda.synchronize()
-            errs.append(finite_err(out_k, out_p))
-            same = same and same_bits(out_k, out_p)
+        same, err = slotgrid_against_plain(ek, eo, ec)
+        errs.append(err)
         k3 = k3_on_probe_stream(ek, eo, ec)
         errs.append(k3.pop("k3_max_abs_err"))
         rows[f"edge_{name}"] = {"bit_identical": bool(same and all(k3.values())), **k3}
+    ek, eo, ec = probe_deposit.edge_stream("run_across_tiles")
+    ragged = np.concatenate([[-9, -2], ek[:-518], np.full(5, 2**31 - 1)]).astype(np.int32)
+    eo = np.concatenate([eo, np.full(7, 3.0, np.float32)])
+    same, err = slotgrid_against_plain(torch.from_numpy(ragged).cuda(),
+                                       torch.from_numpy(eo).cuda(), ec)
+    rows["ragged_tail"] = {"keys": int(ragged.size), "bit_identical": same}
+    errs.append(err)
+    fused = slotgrid_cuda.slotgrid_deposit(keys, occ_flat.clone(), c, **probe_deposit.SWEEP)
     ref = probe_deposit.np_reference(keys.cpu().numpy(), occ_flat[:n_vox].cpu().numpy(), c)
     host = fused[:n_vox].cpu().numpy()
     with np.errstate(invalid="ignore"):
@@ -3216,9 +3307,11 @@ def check_slotgrid(keys, occ_flat, c: int) -> dict:
     k3_full = k3_on_probe_stream(keys, occ_flat[:n_vox], c)
     errs.append(k3_full.pop("k3_max_abs_err"))
     rows["k3"] = {"bit_identical": bool(all(k3_full.values())), **k3_full}
-    parts = bounds[1:] - bounds[:-1]
-    row = {"keys": keys.numel(), "slots": c, "touched_voxels": distinct(keys >> 1, n_vox),
-           "largest_part_records": int(parts.max()), "live_parts": int((parts > 0).sum()),
+    flat = keys >> 1
+    touched = torch.unique(flat[(flat >= 0) & (flat < n_vox)])
+    row = {"keys": keys.numel(), "slots": c, "touched_voxels": touched.numel(),
+           "touched_sectors": int(torch.unique(touched >> 3).numel()),
+           "largest_run_records": probe_deposit.largest_run(keys, c),
            "largest_count": probe_deposit.largest_count(keys, c), **rows,
            "f64_reference": {"mismatches": int(np.sum(host != ref)), "worst": worst},
            "scatter_bit_mismatches": int((fused[:n_vox].view(torch.int32)
@@ -3236,11 +3329,41 @@ def check_slotgrid(keys, occ_flat, c: int) -> dict:
     return {**row, "max_abs_err": max(errs)}
 
 
+def probe_times() -> dict:
+    """Each probe alone beside the empty kernel (the launch floor) and its
+    library call's device time, and each probe's wrapper call beside its
+    plain version and its library call, in alternated turns."""
+    inputs = probes_cuda.probe_inputs("cuda")
+    out = {}
+    for name, fn in probes_cuda.PROBES.items():
+        args = inputs[name]
+        lib = PROBE_LIBRARY_CALLS[name]
+        alone = {"kernel": (lambda: fn(*args), PROBE_KERNELS[name]),
+                 "launch_floor": (probes_cuda.empty_kernel, EMPTY_KERNEL)}
+        calls = {"kernel": lambda: fn(*args),
+                 "plain": lambda: probes_cuda.PLAIN[name](*args)}
+        if callable(lib):
+            alone["library"] = (lambda: lib(*args), "")
+            calls["library"] = lambda: lib(*args)
+        a = alternated_ms(alone, turns=4, measure=device_alone_ms)
+        c = alternated_ms(calls, turns=4)
+        alone_ms, floor_ms = a["kernel"]["median_ms"], a["launch_floor"]["median_ms"]
+        out[name] = {"alone_ms": alone_ms, "launch_floor_alone_ms": floor_ms,
+                     "alone_over_floor": alone_ms / floor_ms if alone_ms and floor_ms else None,
+                     "library_device_ms": a["library"]["median_ms"] if callable(lib) else None,
+                     "ms": c["kernel"]["median_ms"], "plain_ms": c["plain"]["median_ms"],
+                     "library_ms": c["library"]["median_ms"] if callable(lib) else None,
+                     "library": None if callable(lib) else lib,
+                     "alone_turns": a, "call_turns": c}
+    return out
+
+
 def phase_p() -> dict:
     """P: the deposit probe's own path, through its entry point at full
     size, counted; then each probe and the slot-grid kernel against their
-    plain versions and the yardsticks, and their times beside K3's,
-    scatter_deposit's and onehot_deposit's on the same stream."""
+    plain versions and the yardsticks, and their times (alone, as calls,
+    beside the launch floor, the library calls, K3, scatter_deposit and
+    onehot_deposit on the same stream)."""
     counters = {**{f"probe:{n}": fn for n, fn in probes_cuda.PROBES.items()},
                 "slotgrid_deposit": slotgrid_cuda.slotgrid_deposit}
     for fn in counters.values():
@@ -3261,21 +3384,20 @@ def phase_p() -> dict:
     occ_flat = torch.from_numpy(probe_deposit.initial_occupancy(n, c)).cuda()
     grid = check_slotgrid(keys, occ_flat, c)
 
-    inputs = probes_cuda.probe_inputs("cuda")
-    probe_ms, probe_plain_ms = {}, {}
-    for name, fn in probes_cuda.PROBES.items():
-        probe_plain_ms[name], probe_ms[name] = plain_vs_kernel_ms(
-            lambda: probes_cuda.PLAIN[name](*inputs[name]), lambda: fn(*inputs[name]))
-    bounds = slotgrid_cuda.part_bounds(keys, c)
+    p_times = probe_times()
     n_vox = c * probe_deposit.V
     occ_k, occ_p = occ_flat.clone(), occ_flat.clone()
     sweep = probe_deposit.SWEEP
+    fused_call = lambda: slotgrid_cuda.slotgrid_deposit(keys, occ_k, c, **sweep)  # noqa: E731
+    counts_call = lambda: slotgrid_cuda.slotgrid_deposit(  # noqa: E731
+        keys, occ_k, c, fuse_sweep=False, **sweep)
     plain_ms, kernel_ms = plain_vs_kernel_ms(
-        lambda: slotgrid_cuda.slotgrid_deposit_reference(keys, occ_p, bounds, **sweep),
-        lambda: slotgrid_cuda.slotgrid_deposit(keys, occ_k, bounds, **sweep))
-    counts_ms = cuda_ms(lambda: slotgrid_cuda.slotgrid_deposit(keys, occ_k, bounds,
-                                                               fuse_sweep=False, **sweep))
-    with_bounds_ms = cuda_ms(lambda: probe_deposit.deposit(keys, occ_k, c))
+        lambda: slotgrid_cuda.slotgrid_deposit_reference(keys, occ_p, c, **sweep), fused_call)
+    counts_ms = cuda_ms(counts_call)
+    profs = alternated_ms({"fused": (fused_call, SLOTGRID_KERNEL),
+                           "counts": (counts_call, SLOTGRID_KERNEL),
+                           "counts_call": (counts_call, "")},
+                          turns=4, measure=device_alone_ms)
     cfg = probe_deposit.k3_config(c)
     occ_3 = occ_flat.clone()
     scatter_ms, k3_ms = plain_vs_kernel_ms(
@@ -3286,36 +3408,47 @@ def phase_p() -> dict:
     touched = grid["touched_voxels"]
     work = probe_work()
     times = {"slotgrid_ms": kernel_ms, "slotgrid_plain_ms": plain_ms,
-             "slotgrid_counts_ms": counts_ms, "slotgrid_with_bounds_ms": with_bounds_ms,
+             "slotgrid_counts_ms": counts_ms,
+             "slotgrid_kernel_alone_ms": profs["fused"]["median_ms"],
+             "slotgrid_device_ops_per_call": device_ops_per_call(fused_call),
+             "slotgrid_counts_kernel_alone_ms": profs["counts"]["median_ms"],
+             "slotgrid_counts_device_ms_per_call": profs["counts_call"]["median_ms"],
+             "slotgrid_counts_device_ops_per_call": device_ops_per_call(counts_call),
+             "slotgrid_alone_turns": profs,
              "k3_ms": k3_ms, "scatter_deposit_ms": scatter_ms, "onehot_deposit_ms": onehot_ms,
-             "probe_ms": probe_ms, "probe_plain_ms": probe_plain_ms}
+             "probe_ms": {k: v["ms"] for k, v in p_times.items()},
+             "probe_plain_ms": {k: v["plain_ms"] for k, v in p_times.items()}}
     # The function's work: each key read once, each touched voxel read and
     # written once; ~5 operations a key, ~12 a touched voxel's sweep.
     slot_bound = bound(4 * keys.numel() + 8 * touched, 5 * keys.numel() + 12 * touched)
-    # The TPU design's traffic: every live slot's 128 KB occupancy plane read
-    # and written, plus the keys.
-    per_slot = (bounds[slotgrid_cuda.PARTS::slotgrid_cuda.PARTS]
-                - bounds[:-1:slotgrid_cuda.PARTS])
-    live_slots = int((per_slot > 0).sum())
-    design = bound(live_slots * 2 * 4 * probe_deposit.V + 4 * keys.numel(), 0)
+    # What this design can reach: the keys, and the distinct 32-byte sectors
+    # of the touched voxels read and written (scattered accesses move whole
+    # sectors).
+    design = bound(4 * keys.numel() + 2 * 32 * grid["touched_sectors"], 0)
     probe_bound = bound(*(sum(w[i] for w in work.values()) for i in range(3)))
     emit({"phase": "p_times", **times, "slotgrid_bound": slot_bound,
-          "tpu_design_bound": {**design, "live_slots": live_slots},
-          "probe_bounds": {name: bound(*w) for name, w in work.items()},
-          "largest_part_records": grid["largest_part_records"]})
+          "slotgrid_design_bound": {**design, "touched_sectors": grid["touched_sectors"]},
+          "design_bound_ms": design["bound_ms"],
+          "largest_run_records": grid["largest_run_records"],
+          "probes": p_times, "probe_bounds": {name: bound(*w) for name, w in work.items()}})
     return {"launches": {"deposit_probes": sum(v for k, v in launches.items()
                                                if k.startswith("probe:")),
                          "slotgrid_deposit": launches["slotgrid_deposit"]},
             "probe_launches": {k.split(":", 1)[1]: v for k, v in launches.items()
                                if k.startswith("probe:")},
-            "ms": {"deposit_probes": sum(probe_ms.values()), "slotgrid_deposit": kernel_ms},
-            "plain_ms": {"deposit_probes": sum(probe_plain_ms.values()),
+            "ms": {"deposit_probes": sum(times["probe_ms"].values()),
+                   "slotgrid_deposit": kernel_ms},
+            "plain_ms": {"deposit_probes": sum(times["probe_plain_ms"].values()),
                          "slotgrid_deposit": plain_ms},
             "bound": {"deposit_probes": probe_bound, "slotgrid_deposit": slot_bound},
+            # No one call computes all five probes, nor the deposit and its
+            # sweep; each probe's library call is in the probes' entries.
             "library_ms": {"deposit_probes": None, "slotgrid_deposit": None},
             "max_abs_err": {"deposit_probes": max(r["max_abs_err"] for r in probes.values()),
                             "slotgrid_deposit": grid["max_abs_err"]},
-            "times": times}
+            "times": times, "probes": p_times, "design": design,
+            "probe_bounds": {name: bound(*w) for name, w in work.items()},
+            "largest_run_records": grid["largest_run_records"]}
 
 
 def main(argv=None) -> int:
@@ -3355,7 +3488,7 @@ def main(argv=None) -> int:
     k3 = timed("k3_ndt_deposit", phase_k3)
     k4 = timed("k4_gather", phase_k4)
     wrappers = timed("wrapper_cost", phase_wrapper_cost, expand_cuda, gather_cuda, deposit_cuda,
-                     wrapper_inputs(), REPO)
+                     wrapper_inputs(), REPO, (slotgrid_cuda, probes_cuda))
     k4_flags = timed("k4_ndt_flags", phase_k4_flags)
     timed("ndt_hardware_differential", phase_ndt_hardware_differential)
     ndt = timed("ndt_om_rays_per_sec", phase_ndt_om_bench)
@@ -3493,11 +3626,28 @@ def main(argv=None) -> int:
         # P's path is the deposit probe's own entry point.
         row("deposit_probes", "probes.cu", "scripts/probe_deposit.py:114", p,
             p["max_abs_err"]["deposit_probes"], probe_launches=p["probe_launches"],
-            probe_ms=p["times"]["probe_ms"], probe_plain_ms=p["times"]["probe_plain_ms"]),
+            probe_ms=p["times"]["probe_ms"], probe_plain_ms=p["times"]["probe_plain_ms"],
+            probe_alone_ms={k: v["alone_ms"] for k, v in p["probes"].items()},
+            launch_floor_alone_ms={k: v["launch_floor_alone_ms"]
+                                   for k, v in p["probes"].items()},
+            probe_library_ms={k: v["library_ms"] for k, v in p["probes"].items()},
+            probe_library_device_ms={k: v["library_device_ms"]
+                                     for k, v in p["probes"].items()},
+            probe_library={k: v["library"] for k, v in p["probes"].items() if v["library"]},
+            probe_bound_ms={k: v["bound_ms"] for k, v in p["probe_bounds"].items()},
+            library="per probe: bincount (scatter-add, one-hot), gather (take-along)"),
         row("slotgrid_deposit", "slotgrid.cu", "scripts/probe_deposit.py:218", p,
             p["max_abs_err"]["slotgrid_deposit"],
-            **{k: p["times"][k] for k in ("slotgrid_counts_ms", "slotgrid_with_bounds_ms",
-                                          "k3_ms", "scatter_deposit_ms", "onehot_deposit_ms")}),
+            kernel_alone_ms=p["times"]["slotgrid_kernel_alone_ms"],
+            device_ops_per_call=p["times"]["slotgrid_device_ops_per_call"],
+            counts_device_ops_per_call=p["times"]["slotgrid_counts_device_ops_per_call"],
+            counts_kernel_alone_ms=p["times"]["slotgrid_counts_kernel_alone_ms"],
+            design_bound_ms=p["design"]["bound_ms"],
+            design_bound_bytes=p["design"]["bound_bytes"],
+            largest_run_records=p["largest_run_records"],
+            library="none: no one PyTorch call computes the deposit and its sweep",
+            **{k: p["times"][k] for k in ("slotgrid_counts_ms", "k3_ms", "scatter_deposit_ms",
+                                          "onehot_deposit_ms")}),
     ]})
     emit({"phase_seconds": "total", "seconds": sum(seconds.values())})
     print(info["nvidia_smi"], flush=True)

@@ -64,15 +64,16 @@ _SIGNATURES = {
     # weight plane, distance plane, ids, w (or null), wsdf, n, sentinel,
     # trunc, max_weight, near_zero, scratch, stream
     "ohm_tsdf_visits": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P],
-    # keys, bounds, n_parts, occupancy, hit_value, miss_value, min_value,
-    # max_value, fuse_sweep, stream
-    "ohm_slotgrid_deposit": [_P, _P, _I, _P, _F, _F, _F, _F, _I, _P],
+    # sorted keys, n_keys, n_vox, occupancy, hit_value, miss_value,
+    # min_value, max_value, fuse_sweep, stream
+    "ohm_slotgrid_deposit": [_P, _I, _I, _P, _F, _F, _F, _F, _I, _P],
     # The deposit probes (csrc/probes.cu): inputs, sizes, out, stream.
     "ohm_probe_scatter_add": [_P, _I, _P, _P],
     "ohm_probe_take_along": [_P, _P, _P, _P],
     "ohm_probe_dynamic_loop": [_P, _P, _P],
     "ohm_probe_bulk_copy": [_P, _P, _I, _P, _P],
     "ohm_probe_onehot_mma": [_P, _I, _P, _P],
+    "ohm_probe_empty": [_P],
 }
 
 _lib = None

@@ -133,7 +133,8 @@ def onehot_mma_reference(v: torch.Tensor) -> torch.Tensor:
 
 
 def onehot_mma(v: torch.Tensor) -> torch.Tensor:
-    """The same product with bf16 one-hot factors on the tensor cores."""
+    """The same product on the tensor cores: bf16 one-hot fragments built
+    in registers (``mma.sync``), f32 accumulate, exact."""
     if v.device.type == "cpu":
         return onehot_mma_reference(v)
     if not (v.dtype == torch.int32 and v.dim() == 2 and v.shape[1] == 128
@@ -145,6 +146,19 @@ def onehot_mma(v: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "probe onehot_mma")
     onehot_mma.launches += 1
     return out
+
+
+def empty_kernel() -> None:
+    """Launch a kernel that does nothing on the current CUDA device: the
+    launch floor the probes are timed beside.  No plain version: it
+    computes nothing."""
+    rc = _build.entry("ohm_probe_empty")(
+        torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
+    _build.check(rc, "probe empty")
+    empty_kernel.launches += 1
+
+
+empty_kernel.launches = 0
 
 
 PROBES = {"vmem_scatter_add": scatter_add, "take_along_axis": take_along,

@@ -1,14 +1,15 @@
 """P-B, the slot-grid deposit: per-voxel hit and miss counts of a sorted
-(flat << 1 | hit) key stream, slot by slot, then the occupancy sweep, in
-place.
+(flat << 1 | hit) key stream over ``n_slots`` slots of V voxels, then the
+occupancy sweep, in place.
 
 Replaces ``scripts/probe_deposit.py`` ``pallas_deposit_build`` (its
 ``pallas_call``): the reference's prototype of a different occupancy
 deposit, whose grid runs over arena slots and counts each slot's records
 into an on-chip plane with the sweep fused in.  The CUDA kernel is in
-``csrc/slotgrid.cu``; the plain PyTorch version is
-``slotgrid_deposit_reference`` (int32 ``index_add_`` counts, then
-``sweep_math``).
+``csrc/slotgrid.cu``: one launch balanced by record, where the record that
+ends a voxel's run owns it and reads its counts off positions.  The plain
+PyTorch version is ``slotgrid_deposit_reference`` (int32 ``index_add_``
+counts, then ``sweep_math``).
 
 The sweep is the probe's (``probe_deposit.py`` ``sweep_math``): +inf marks
 an unobserved voxel, no exclude flags, no saturation, the one-sided clamp
@@ -32,15 +33,15 @@ from ohm_tpu_torch.ops import _build
 #: Voxels of one arena slot (32^3 regions), as the probe's ``V``.
 V_SHIFT = 15
 V = 1 << V_SHIFT
-#: The kernel's grid runs over (slot, part); each part spans V / PARTS
-#: voxels and holds its two u32 count planes in shared memory (64 KB).
-PARTS = 4
-PART_VOX = V // PARTS
 #: The probe's one-hot split of a voxel index: hi = v >> 9, lo = v & 511.
 HI = 64
 LO = 512
 #: Records per block of the one-hot segmented matmul (the probe's CHUNK).
 CHUNK = 512
+#: Keys a block of the CUDA kernel takes (``csrc/slotgrid.cu``'s kTile =
+#: kThreads * kPer): a run that crosses a multiple of it is searched back
+#: in global memory.
+TILE = 1024
 
 
 def sweep_math(occ, hit_plane, miss_plane, *, hit, miss, min_value, max_value):
@@ -55,25 +56,15 @@ def sweep_math(occ, hit_plane, miss_plane, *, hit, miss, min_value, max_value):
     return torch.where(touched, value, occ)
 
 
-def part_bounds(keys: torch.Tensor, n_slots: int) -> torch.Tensor:
-    """i32[n_slots * PARTS + 1]: the first record of each (slot, part) of
-    the sorted key stream, and the end of the last (sentinel keys, with
-    flat = n_slots * V, fall past it)."""
-    edges = torch.arange(n_slots * PARTS + 1, dtype=torch.int32, device=keys.device) * PART_VOX
-    return torch.searchsorted(keys >> 1, edges, out_int32=True)
-
-
-def slotgrid_deposit_reference(keys, occ, bounds, *, hit, miss, min_value, max_value,
+def slotgrid_deposit_reference(keys, occ, n_slots: int, *, hit, miss, min_value, max_value,
                                fuse_sweep=True):
-    """Plain PyTorch P-B on ``occ[:n]``, n = (len(bounds) - 1) * PART_VOX,
-    in place.  Record i counts when it lies in the range ``bounds`` gives its
-    part and its voxel lies in that part, as the kernel reads them."""
-    n_parts = bounds.shape[0] - 1
-    n = n_parts * PART_VOX
+    """Plain PyTorch P-B on ``occ[:n]``, n = n_slots * V, in place: a record
+    counts when its flat lies in [0, n).  ``keys`` must be sorted ascending,
+    as for ``slotgrid_deposit``; this version alone would count them in
+    any order."""
+    n = n_slots * V
     flat = keys >> 1
-    pos = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
-    part = torch.searchsorted(bounds, pos, right=True, out_int32=True) - 1
-    live = (part >= 0) & (part < n_parts) & (flat >= 0) & (flat // PART_VOX == part)
+    live = (flat >= 0) & (flat < n)
     is_hit = (keys & 1) == 1
     counts = []
     for sel in (live & is_hit, live & ~is_hit):
@@ -89,34 +80,36 @@ def slotgrid_deposit_reference(keys, occ, bounds, *, hit, miss, min_value, max_v
     return occ
 
 
-def slotgrid_deposit(keys, occ, bounds, *, hit, miss, min_value, max_value, fuse_sweep=True):
-    """Deposit the sorted (flat << 1 | hit) stream ``keys`` (i32[N]) into
-    ``occ`` (f32[>= n], n = (len(bounds) - 1) * PART_VOX, updated in place;
-    nothing past n is read or written) by (slot, part), with the record
-    bounds ``bounds`` (i32[slots * PARTS + 1], from ``part_bounds``).
+def slotgrid_deposit(keys, occ, n_slots: int, *, hit, miss, min_value, max_value,
+                     fuse_sweep=True):
+    """Deposit the (flat << 1 | hit) stream ``keys`` (i32[N], sorted
+    ascending) into ``occ`` (f32[>= n], n = n_slots * V, updated in place;
+    nothing past n is read or written): records whose flat lies outside
+    [0, n) count nothing.  The kernel takes the record that ends a voxel's
+    run as its owner, so on unsorted keys one voxel can have several owners
+    and its counts on the card are undefined (unchecked: a check would cost
+    a device operation a call).
 
     ``fuse_sweep``: sweep each touched voxel (the probe's ``sweep_math``);
-    otherwise write ``hit * 65536 + miss`` to every voxel, 0 where a part
-    has no records.  Counts are not capped.  Returns ``occ``."""
+    otherwise write ``hit * 65536 + miss`` to every voxel of [0, n).  Counts
+    are not capped.  On the card: one launch fused, a memset and one launch
+    unfused; the keys must start on a 16-byte boundary.  Returns ``occ``."""
     if keys.device.type == "cpu":
-        return slotgrid_deposit_reference(keys, occ, bounds, hit=hit, miss=miss,
+        return slotgrid_deposit_reference(keys, occ, n_slots, hit=hit, miss=miss,
                                           min_value=min_value, max_value=max_value,
                                           fuse_sweep=fuse_sweep)
-    n_parts = bounds.shape[0] - 1
+    n = n_slots * V
     if not (keys.dtype == torch.int32 and keys.dim() == 1 and keys.is_contiguous()):
         raise ValueError("keys must be a contiguous i32[N] tensor")
-    if not (bounds.dtype == torch.int32 and bounds.dim() == 1 and bounds.is_contiguous()
-            and n_parts >= 0 and bounds.device == keys.device):
-        raise ValueError("bounds must be a contiguous i32[slots * PARTS + 1] tensor on the "
-                         "keys' device")
+    if keys.data_ptr() % 16:
+        raise ValueError("keys must start on a 16-byte boundary")
     if not (occ.dtype == torch.float32 and occ.dim() == 1 and occ.is_contiguous()
-            and occ.shape[0] >= n_parts * PART_VOX and occ.device == keys.device):
-        raise ValueError("occ must be a contiguous f32[>= slots * V] tensor on the keys' device")
-    if n_parts % PARTS:
-        raise ValueError(f"bounds must hold slots * {PARTS} + 1 entries")
-    rc = _build.load().ohm_slotgrid_deposit(
-        keys.data_ptr(), bounds.data_ptr(), n_parts, occ.data_ptr(), hit, miss, min_value,
-        max_value, int(fuse_sweep), _build.stream_of(occ))
+            and 0 <= n <= occ.shape[0] and occ.device == keys.device):
+        raise ValueError("occ must be a contiguous f32[>= n_slots * V] tensor on the keys' "
+                         "device")
+    rc = _build.entry("ohm_slotgrid_deposit")(
+        keys.data_ptr(), keys.shape[0], n, occ.data_ptr(), hit, miss, min_value, max_value,
+        int(fuse_sweep), _build.stream_of(occ))
     _build.check(rc, "slotgrid_deposit")
     slotgrid_deposit.launches += 1
     return occ

@@ -13,9 +13,10 @@ in brackets):
                        on the device, a bulk async copy from a run-time
                        offset, a one-hot product on the tensor cores
   slotgrid  [pallas]   the slot-grid deposit with the fused sweep
-                       (ops.slotgrid_cuda): per-slot on-chip count planes,
-                       touching only slots with records; against the f64
-                       reference and, bit for bit, the scatter yardstick
+                       (ops.slotgrid_cuda): sorted-run counts read off
+                       positions, one launch balanced by record, touching
+                       only voxels with records; against the f64 reference
+                       and, bit for bit, the scatter yardstick
   onehot    [xla]      the one-hot segmented matmul in plain PyTorch: block
                        partial planes by a batched product, a block -> slot
                        add (cost only: blocks spanning two slots drop the
@@ -47,8 +48,8 @@ import torch
 from ohm_tpu_torch.device import resolve_device
 from ohm_tpu_torch.ops import deposit_cuda, probes_cuda
 from ohm_tpu_torch.ops.config import IntegrateConfig
-from ohm_tpu_torch.ops.slotgrid_cuda import (V, V_SHIFT, onehot_deposit, part_bounds,
-                                             scatter_deposit, slotgrid_deposit)
+from ohm_tpu_torch.ops.slotgrid_cuda import (V, V_SHIFT, onehot_deposit, scatter_deposit,
+                                             slotgrid_deposit)
 
 # ---- stream shape (bench-like) ---------------------------------------------
 C = 512                 # arena capacity in slots
@@ -116,23 +117,38 @@ def initial_occupancy(n: int = N, c: int = C) -> np.ndarray:
     return occ0
 
 
-EDGE_STREAMS = ("empty_slot", "all_sentinel", "boundary_in_row", "long_run")
+EDGE_STREAMS = ("empty_slot", "all_sentinel", "boundary_in_row", "long_run",
+                "run_across_tiles", "no_sentinel_tail")
 LONG_RUN = 70_144
+#: run_across_tiles's two voxels with misses and hits: (flat, first record,
+#: misses, hits); each count a power of two, so that n * hit and n * miss
+#: are exact in f32 and no FMA can move the sweep's bits.  The edges they
+#: cross, 4096 and 8192, are multiples of the kernel's tile
+#: (``slotgrid_cuda.TILE``).
+ACROSS_TILES = ((20_000, 3072, 1024, 128), (V + 5_000, 8000, 64, 256))
 
 
 def edge_stream(name: str):
     """A stream at the slot-grid deposit's edges: (sorted keys i32[N],
     occupancy f32[c * V], c), N a multiple of 512.
 
-      empty_slot       4 slots, records in slots 0 and 2 only, 100 sentinels
-      all_sentinel     every key is the sentinel
-      boundary_in_row  slot edges at records 300 and 1300, inside 128-key
-                       rows, over 64 voxels a slot (repeated counts)
-      long_run         70,144 equal miss keys on one voxel, whose count
-                       passes 65535 uncapped (the voxel starts at 1.1e4, so
-                       the fused sweep shows it unclamped), 512 more in slot 1
+      empty_slot        4 slots, records in slots 0 and 2 only, 100 sentinels
+      all_sentinel      every key is the sentinel
+      boundary_in_row   slot edges at records 300 and 1300, inside 128-key
+                        rows, over 64 voxels a slot (repeated counts)
+      long_run          70,144 equal miss keys on one voxel, whose count
+                        passes 65535 uncapped (the voxel starts at 1.1e4, so
+                        the fused sweep shows it unclamped), 512 more in
+                        slot 1
+      run_across_tiles  12,288 records, 4 slots: a voxel's misses from
+                        record 3072 to 4095 and its hits from exactly 4096
+                        (a 4096-record edge), and another's hits across the
+                        8192 edge (ACROSS_TILES), 100 sentinels
+      no_sentinel_tail  2560 records over 2 slots, no sentinel: the last
+                        three keys are real hits of the last voxel
 
-    Every third voxel takes hits only, the others misses only.
+    Every third voxel takes hits only, the others misses only, but for
+    ACROSS_TILES's two.
     """
     rng = np.random.default_rng(3)
     if name == "empty_slot":
@@ -148,12 +164,26 @@ def edge_stream(name: str):
     elif name == "long_run":
         c, n = 2, LONG_RUN + 512
         flat = np.concatenate([np.full(LONG_RUN, 977), V + rng.integers(0, V, 512)])
+    elif name == "run_across_tiles":
+        c, n = 4, 12_288
+        (x, x0, xm, xh), (y, y0, ym, yh) = ACROSS_TILES
+        parts = [rng.integers(0, x, x0), np.full(xm + xh, x),
+                 rng.integers(x + 1, y, y0 - x0 - xm - xh), np.full(ym + yh, y),
+                 rng.integers(y + 1, 3 * V, n - 100 - y0 - ym - yh), np.full(100, c * V)]
+        flat = np.concatenate(parts)
+    elif name == "no_sentinel_tail":
+        c, n = 2, 2560
+        last = 2 * V - 4  # a multiple of 3: hits
+        flat = np.concatenate([rng.integers(0, last, n - 3), np.full(3, last)])
     else:
         raise ValueError(f"unknown edge stream {name!r}; choose from {EDGE_STREAMS}")
     # Hits on every third voxel, misses elsewhere: no voxel takes both, so
     # the sweep's total is one rounded product (XLA's CPU backend contracts
     # a product and a sum into an FMA; tests compare mixed voxels apart).
-    hit = (flat % 3 == 0) & (flat < c * V)
+    hit = ((flat % 3 == 0) & (flat < c * V)).astype(np.int64)
+    if name == "run_across_tiles":
+        for v, _, misses, hits in ACROSS_TILES:
+            hit[flat == v] = np.repeat([0, 1], [misses, hits])
     occ = np.full(c * V, np.inf, np.float32)
     seeded = rng.integers(0, c * V, c * V // 8)
     occ[seeded] = rng.normal(0, 5, seeded.size).astype(np.float32)
@@ -173,10 +203,9 @@ def k3_config(c: int = C) -> IntegrateConfig:
 
 
 def deposit(keys: torch.Tensor, occ: torch.Tensor, c: int = C) -> torch.Tensor:
-    """The slot-grid deposit as the reference's ``run`` calls it: part
-    bounds by searchsorted, then the kernel with the fused sweep (``occ``
-    updated in place)."""
-    return slotgrid_deposit(keys, occ, part_bounds(keys, c), **SWEEP)
+    """The slot-grid deposit as the reference's ``run`` calls it, with the
+    fused sweep (``occ`` updated in place)."""
+    return slotgrid_deposit(keys, occ, c, **SWEEP)
 
 
 def k3_deposit(keys: torch.Tensor, occ: torch.Tensor, cfg: IntegrateConfig) -> torch.Tensor:
@@ -195,6 +224,11 @@ def largest_count(keys: torch.Tensor, c: int = C) -> int:
     if real.numel() == 0:
         return 0
     return int(torch.unique_consecutive(real, return_counts=True)[1].max())
+
+
+def largest_run(keys: torch.Tensor, c: int = C) -> int:
+    """The most records of one voxel (its misses and hits, one run)."""
+    return largest_count(keys >> 1 << 1, c)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -263,16 +297,13 @@ def run(device="cuda", stages=STAGES, n: int = N, c: int = C, live: int = LIVE,
         with np.errstate(invalid="ignore"):  # inf - inf where both are unobserved
             worst = float(np.max(np.abs(np.nan_to_num(host - ref, posinf=0))))
         bits = bit_mismatches(got[:n_vox], scatter()[:n_vox])
-        bounds = part_bounds(keys, c)
-        parts = (bounds[1:] - bounds[:-1]).cpu()
+        run_len = largest_run(keys, c)
         print(f"  [slotgrid] vs f64 reference: mismatches={mism} worst={worst}")
         print(f"  [slotgrid] vs f32 scatter path: bit mismatches={bits}")
-        print(f"  [slotgrid] largest part: {int(parts.max())} records; "
-              f"{int((parts > 0).sum())} of {parts.numel()} parts hold records")
+        print(f"  [slotgrid] largest run: {run_len} records of one voxel")
         occ = occ_flat.clone()
         out["slotgrid"] = {"mismatches_f64": mism, "worst_f64": worst,
-                           "bit_mismatches_scatter": bits,
-                           "largest_part_records": int(parts.max()),
+                           "bit_mismatches_scatter": bits, "largest_run_records": run_len,
                            "ms": report("slotgrid", lambda: deposit(keys, occ, c))}
         ok = ok and bits == 0
 

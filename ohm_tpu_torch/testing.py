@@ -297,3 +297,19 @@ def tsdf_visit_stream(name: str, sentinel: int, n_arena: int | None = None,
     return {"ids": ids, "w": w, "wsdf": wsdf.astype(np.float32), "weight": weight,
             "distance": distance, "trunc": float(np.float32(trunc)),
             "max_weight": float(np.float32(max_weight))}
+
+
+#: One PyTorch call computing each deposit probe's function, its library
+#: yardstick (chip_smoke.py times it beside the kernel; no path of the port
+#: calls it), or the reason there is none.
+PROBE_LIBRARY_CALLS = {
+    "vmem_scatter_add": lambda idx: torch.bincount(idx.reshape(-1) & 127, minlength=128)
+    .view(1, 128).float(),
+    "take_along_axis": lambda x, idx: torch.gather(x, 1, (idx & 127).long()),
+    "dynamic_fori": "none: every PyTorch call takes its trip count from the host",
+    "dyn_offset_dma": "none: narrow takes its offset from the host; index_select needs "
+                      "the row indices built by another call",
+    # Voxel indices in [0, 32768), as the probe's.
+    "onehot_mxu_dot": lambda v: torch.bincount(v.reshape(-1), minlength=32768)
+    .view(64, 512).float(),
+}

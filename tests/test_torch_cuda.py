@@ -4,9 +4,11 @@ planes, missed counts, gathered flags, occupancy bits and touched counts
 must be identical, at the bench shape: 8192 box-scene rays, a 512-slot
 arena of 32^3 regions; the f32 gather and the TSDF pair deposit bit for
 bit over -0.0, infinities and NaN payloads; the expand kernel's traversal
-output bit for bit on every lane; the five deposit probes and the slot-grid
-deposit (on the probe's bench-shaped stream and its edge streams) bit for
-bit, the slot-grid deposit and K3 equal to the scatter yardstick; the
+output bit for bit on every lane; the five deposit probes, the one-hot
+probe on random records (also against bincount), and the slot-grid deposit
+(on the probe's bench-shaped stream, its edge streams and a ragged tail,
+and on a second run) bit for bit, the slot-grid deposit and K3 equal to
+the scatter yardstick; the
 expand kernel's in-kernel prelude (overflow, the end voxel's enter time)
 against the plain prelude on every wire layout and on edge rays; the fused
 NDT flag gather against its plain version at the NDT-OM arena; the
@@ -47,13 +49,13 @@ from ohm_tpu_torch.ops.gather_cuda import (
     gather_ndt_flags, gather_ndt_flags_reference, gather_plane, gather_plane_reference,
     gather_planes_f32, gather_planes_f32_reference)
 from ohm_tpu_torch.ops.integrate import expand_records
-from ohm_tpu_torch.ops.slotgrid_cuda import (part_bounds, scatter_deposit, slotgrid_deposit,
+from ohm_tpu_torch.ops.slotgrid_cuda import (scatter_deposit, slotgrid_deposit,
                                              slotgrid_deposit_reference)
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit as pd
 from ohm_tpu_torch.ops.tsdf_cuda import tsdf_visits, tsdf_visits_reference
-from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, TSDF_VISIT_STREAMS,
-                                   deposit_edge_stream, dispatched_ops, edge_rays,
+from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, PROBE_LIBRARY_CALLS,
+                                   TSDF_VISIT_STREAMS, deposit_edge_stream, dispatched_ops, edge_rays,
                                    ndt_edge_streams, ndt_flag_arena, tsdf_visit_stream)
 
 pytestmark = pytest.mark.cuda
@@ -581,6 +583,26 @@ def test_probe_kernel_matches_plain(cuda, name):
     assert np.array_equal(out.cpu().numpy(), probes_cuda.expected_outputs()[name])
 
 
+@pytest.mark.parametrize("rows", [1, 4, 8, "one_cell"])
+def test_onehot_probe_on_random_records(cuda, rows):
+    """The one-hot product on the tensor cores against its plain version and
+    bincount: random records with 1, 4 and 8 rows of 128, and 512 records in
+    one cell."""
+    if rows == "one_cell":
+        v = torch.full((4, 128), 12_345, dtype=torch.int32, device=cuda)
+    else:
+        rng = np.random.default_rng(rows)
+        v = torch.from_numpy(rng.integers(0, pd.V, (rows, 128)).astype(np.int32)).to(cuda)
+    out = probes_cuda.onehot_mma(v)
+    ref = probes_cuda.onehot_mma_reference(v)
+    lib = PROBE_LIBRARY_CALLS["onehot_mxu_dot"](v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(out, lib)
+    assert float(out.sum()) == v.numel()
+    if rows == "one_cell":
+        assert float(out[12_345 >> 9, 12_345 & 511]) == 512.0
+
+
 def _probe_stream(name, device):
     if name == "bench":
         keys, occ, c = pd.make_stream(), pd.initial_occupancy()[:pd.C * pd.V], pd.C
@@ -593,14 +615,36 @@ def _probe_stream(name, device):
 @pytest.mark.parametrize("name", ("bench",) + pd.EDGE_STREAMS)
 def test_slotgrid_kernel_matches_plain(cuda, name, fuse_sweep):
     keys, occ, c = _probe_stream(name, cuda)
-    bounds = part_bounds(keys, c)
-    out = slotgrid_deposit(keys, occ.clone(), bounds, fuse_sweep=fuse_sweep, **pd.SWEEP)
-    ref = slotgrid_deposit_reference(keys, occ.clone(), bounds, fuse_sweep=fuse_sweep,
-                                     **pd.SWEEP)
+    out = slotgrid_deposit(keys, occ.clone(), c, fuse_sweep=fuse_sweep, **pd.SWEEP)
+    again = slotgrid_deposit(keys, occ.clone(), c, fuse_sweep=fuse_sweep, **pd.SWEEP)
+    ref = slotgrid_deposit_reference(keys, occ.clone(), c, fuse_sweep=fuse_sweep, **pd.SWEEP)
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
     if name == "long_run":
         assert float(out[977]) == (pd.LONG_RUN if not fuse_sweep else float(ref[977]))
+
+
+@pytest.mark.parametrize("fuse_sweep", [True, False], ids=["fused", "counts"])
+def test_slotgrid_kernel_on_a_ragged_tail(cuda, fuse_sweep):
+    """A stream whose length is no multiple of the kernel's tile or of 4
+    (a scalar tail), keys below 0 and past the slots, and an occupancy
+    longer than the slots, whose tail stays as it was; misaligned keys are
+    refused; a fused call issues no PyTorch op."""
+    keys, occ, c = _probe_stream("run_across_tiles", cuda)
+    keys = torch.cat([torch.tensor([-9, -2], dtype=torch.int32, device=cuda), keys[:-515],
+                      torch.full((5,), 2**31 - 1, dtype=torch.int32, device=cuda)])
+    occ = torch.cat([occ, torch.full((7,), 3.0, device=cuda)])
+    for k in (keys, keys[:-3].clone()):
+        out = slotgrid_deposit(k, occ.clone(), c, fuse_sweep=fuse_sweep, **pd.SWEEP)
+        ref = slotgrid_deposit_reference(k, occ.clone(), c, fuse_sweep=fuse_sweep, **pd.SWEEP)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(out[c * pd.V:], occ[c * pd.V:])
+    with pytest.raises(ValueError, match="16-byte"):
+        slotgrid_deposit(keys[1:], occ.clone(), c, fuse_sweep=fuse_sweep, **pd.SWEEP)
+    if fuse_sweep:
+        assert dispatched_ops(lambda: slotgrid_deposit(keys, occ, c, **pd.SWEEP)) == []
 
 
 def test_slotgrid_and_k3_match_the_scatter_yardstick(cuda):

@@ -203,8 +203,12 @@ def test_build_takes_every_cuda_source_for_hopper():
                      "slotgrid.cu", "tsdf.cu"]
     sig = _build._SIGNATURES
     assert set(sig) >= {"ohm_gather_planes_f32", "ohm_tsdf_set_deposit", "ohm_tsdf_visits",
-                        "ohm_slotgrid_deposit", "ohm_probe_onehot_mma"}
+                        "ohm_slotgrid_deposit", "ohm_probe_onehot_mma", "ohm_probe_empty"}
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # P-B takes no part bounds: keys, n_keys, n_vox, occupancy, the four
+    # sweep values, fuse_sweep, stream.
+    assert sig["ohm_slotgrid_deposit"] == [P, I, I, P] + [F] * 4 + [I, P]
+    assert sig["ohm_probe_empty"] == [P]
     # K5+K6 fused: planes, ids, w (or null), wsdf, n, sentinel, trunc,
     # max_weight, near_zero, scratch, stream.
     assert sig["ohm_tsdf_visits"] == [P] * 5 + [I, I, F, F, F, P, P]

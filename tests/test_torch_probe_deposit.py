@@ -11,6 +11,7 @@ globals N, C and LIVE are set for each size; the file is not touched.
 import functools
 import importlib.util
 import os
+import re
 import sys
 
 import jax
@@ -20,10 +21,11 @@ import pytest
 import torch
 
 from ohm_tpu_torch.ops import probes_cuda
-from ohm_tpu_torch.ops.slotgrid_cuda import (HI, LO, V, onehot_deposit, part_bounds,
+from ohm_tpu_torch.ops.slotgrid_cuda import (HI, LO, TILE, V, onehot_deposit,
                                              scatter_deposit, slotgrid_deposit,
                                              slotgrid_deposit_reference)
 from ohm_tpu_torch.scripts import probe_deposit as pd
+from ohm_tpu_torch.testing import PROBE_LIBRARY_CALLS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = (8192, 8, 5)
@@ -96,8 +98,7 @@ def pallas_deposit(n, c, keys, occ, variant, fuse_sweep):
 
 
 def port_deposit(keys, occ, c, fuse_sweep):
-    k = torch.from_numpy(keys)
-    return slotgrid_deposit(k, torch.from_numpy(occ.copy()), part_bounds(k, c),
+    return slotgrid_deposit(torch.from_numpy(keys), torch.from_numpy(occ.copy()), c,
                             fuse_sweep=fuse_sweep, **pd.SWEEP).numpy()
 
 
@@ -133,6 +134,27 @@ def test_plain_slotgrid_matches_the_pallas_kernel_on_edge_streams(name, fuse_swe
         total = np.float32(pd.LONG_RUN) * np.float32(pd.MISS_VALUE)
         assert got[977] == (np.float32(1.1e4) + total if fuse_sweep else pd.LONG_RUN)
         assert pd.largest_count(torch.from_numpy(keys), c) == pd.LONG_RUN
+    if name == "run_across_tiles":
+        # Each voxel of ACROSS_TILES: its misses, then its hits from the
+        # record given, the first across a 4096-record edge.
+        for v, first, misses, hits in pd.ACROSS_TILES:
+            run = keys[first:first + misses + hits]
+            assert np.all(run >> 1 == v) and keys[first - 1] >> 1 != v
+            assert np.array_equal(run & 1, np.repeat([0, 1], [misses, hits]))
+            if not fuse_sweep:
+                assert got[v] == hits * 65536 + misses
+        # The edges are the kernel's tile edges.
+        assert 4096 % TILE == 0 and 8192 % TILE == 0
+        x, first, misses, _ = pd.ACROSS_TILES[0]
+        assert first < 4096 and first + misses == 4096
+        y, first, misses, hits = pd.ACROSS_TILES[1]
+        assert first + misses < 8192 < first + misses + hits
+    if name == "no_sentinel_tail":
+        last = keys[-1] >> 1
+        assert keys[-1] & 1 and last < c * V and not np.any(keys >> 1 == c * V)
+        assert bits(got)[last] != bits(occ)[last]
+        if not fuse_sweep:
+            assert got[last] == 3 * 65536
 
 
 def np_sweep_f32(occ, n_hit, n_miss):
@@ -167,22 +189,68 @@ def test_mixed_voxels_round_every_product_and_sum_once():
     np.testing.assert_allclose(got[mixed], want[mixed], rtol=1e-6, atol=1e-6)
 
 
-def test_plain_slotgrid_counts_only_records_inside_their_part_bounds():
-    """The plain version reads the bounds as the kernel does: a record
-    counts when it lies in its part's range and its voxel in that part."""
-    keys, occ, c = pd.edge_stream("boundary_in_row")
-    k = torch.from_numpy(keys)
-    bounds = part_bounds(k, c)
-    cut = bounds.clone()
-    cut[4] += 50  # slot 1's first part loses its first 50 records
-    got = slotgrid_deposit_reference(k, torch.from_numpy(occ.copy()), cut, fuse_sweep=False,
-                                     **pd.SWEEP)
-    full = slotgrid_deposit_reference(k, torch.from_numpy(occ.copy()), bounds,
-                                      fuse_sweep=False, **pd.SWEEP)
-    lost = keys[int(bounds[4]):int(cut[4])]
-    assert lost.size == 50 and np.all((lost >> 1) // (V // 4) == 4)
-    want = np.where(lost & 1, 65536.0, 1.0).sum()
-    assert float(full.double().sum() - got.double().sum()) == want
+@pytest.mark.parametrize("fuse_sweep", [True, False], ids=["fused", "counts"])
+def test_plain_slotgrid_counts_nothing_at_or_past_the_slots(fuse_sweep):
+    """Keys whose flat lies at or past n_slots * V (the sentinel and beyond)
+    or below 0 count nothing, and no element of occ past n_slots * V
+    changes."""
+    c, rng = 2, np.random.default_rng(5)
+    inside = rng.integers(0, c * V, 3000)
+    outside = np.concatenate([rng.integers(-40, 0, 20), np.full(60, c * V),
+                              rng.integers(c * V + 1, 2**30 - 1, 50), [2**30 - 1]])
+    flat = np.concatenate([inside, outside])
+    hit = rng.random(flat.size) < 0.3
+    keys = np.sort((flat << 1) | hit).astype(np.int32)
+    occ = np.full(c * V + 500, np.inf, np.float32)
+    occ[c * V:] = rng.normal(0, 5, 500).astype(np.float32)
+    got = slotgrid_deposit_reference(torch.from_numpy(keys), torch.from_numpy(occ.copy()), c,
+                                     fuse_sweep=fuse_sweep, **pd.SWEEP).numpy()
+    assert np.array_equal(bits(got[c * V:]), bits(occ[c * V:]))
+    only_inside = np.sort((inside << 1) | hit[:inside.size]).astype(np.int32)
+    want = slotgrid_deposit_reference(torch.from_numpy(only_inside),
+                                      torch.from_numpy(occ.copy()), c,
+                                      fuse_sweep=fuse_sweep, **pd.SWEEP).numpy()
+    assert np.array_equal(bits(got), bits(want))
+    if not fuse_sweep:
+        n_hit = np.bincount(inside[hit[:inside.size]], minlength=c * V)
+        n_miss = np.bincount(inside[~hit[:inside.size]], minlength=c * V)
+        assert np.array_equal(got[:c * V], (n_hit * 65536 + n_miss).astype(np.float32))
+
+
+def test_tile_is_the_kernel_source_tile():
+    """slotgrid_cuda.TILE, on whose multiples run_across_tiles puts its
+    runs, is the keys a block of csrc/slotgrid.cu takes (kThreads * kPer)."""
+    path = os.path.join(REPO, "ohm_tpu_torch", "csrc", "slotgrid.cu")
+    with open(path) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert re.search(r"constexpr int kTile = kThreads \* kPer;", src)
+    assert const("kThreads") * const("kPer") == TILE
+
+
+@pytest.mark.parametrize("name", [n for n, f in PROBE_LIBRARY_CALLS.items() if callable(f)])
+def test_library_yardstick_equals_the_plain_probe(name):
+    """Each probe's library call (bincount for the scatter-add and the
+    one-hot product, gather for take-along), timed beside the kernel on the
+    card, computes the plain version's output: on the probe's inputs, and
+    for the one-hot product on random records with 1, 4 and 8 rows and on
+    512 records in one cell."""
+    lib, plain = PROBE_LIBRARY_CALLS[name], probes_cuda.PLAIN[name]
+    cases = [probes_cuda.probe_inputs("cpu")[name]]
+    if name == "onehot_mxu_dot":
+        rng = np.random.default_rng(6)
+        cases += [(torch.from_numpy(rng.integers(0, V, (rows, 128)).astype(np.int32)),)
+                  for rows in (1, 4, 8)]
+        cases.append((torch.full((4, 128), 12_345, dtype=torch.int32),))
+    for args in cases:
+        out, want = lib(*args), plain(*args)
+        assert out.dtype == want.dtype and out.shape == want.shape
+        assert torch.equal(out, want)
+    assert all(isinstance(f, str) and f.startswith("none: ")
+               for f in PROBE_LIBRARY_CALLS.values() if not callable(f))
 
 
 @pytest.mark.parametrize("size", [SMALL, MEDIUM], ids=["small", "medium"])
