@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the ohm_tpu_torch occupancy (with and without its side layers), NDT
-and TSDF paths, on the rayflow and the segmented wire, and the deposit probe
-once on one NVIDIA GPU.
+(with and without its side layers) and TSDF paths, on the rayflow and the
+segmented wire, the queries, and the deposit probe once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
     python3 chip_smoke.py --wrappers-of DIR   # only the wrapper_cost line, of
@@ -131,6 +131,41 @@ exit code is not 0 and no result line is printed:
                miss_k 32768, synchronous 8192-ray batches; then K3 on the
                arguments one more batch gave it (the sparse delta), against
                its plain version and timed
+  ndt_layers_hardware_differential
+               TorchNdtMap with the traversal, touch-time and incident-normal
+               layers on ndt_hardware_differential's scene with a timestamp
+               per ray, NDT-OM and NDT-TM, on the rayflow and the segmented
+               wire: against the f64 oracle (that phase's tolerances;
+               traversal within rtol 1e-3 / atol 2e-3, touch times within
+               2 ms, the incident normal's worst angle reported), against
+               the port on the CPU (each batch's K3 walk and bounds keys,
+               counts, touch times and stats equal; occupancy, covariance,
+               intensity and traversal within PORT_TOL, with the share of
+               identical occupancy bits reported; mean and normal codes
+               identical on >= 99.9%), and bit-identical between two card
+               runs
+  ndt_layers_rays_per_sec
+               ndt_om_rays_per_sec's configuration (0.2 m, 1024 slots,
+               8192-ray box batches) with traversal, touch time and incident
+               normal and a timestamp per ray, 12 timed after 6 warm-up,
+               fenced; host prep, device time, host syncs, launches, a
+               profile line and the peak allocation; before it (the
+               "ndt_layers_kernel_checks" line) K1 with voxel planes and
+               traversal in one call, the fused flag gather and K3 on the
+               arguments this path gave them, each against its plain
+               version bit for bit, then each call beside its plain version,
+               each kernel alone and each one's bound
+  queries      scripts/bench_modes.py's query rows: RaysQuery with 512
+               outdoor rays on the outdoor mean map (13 executes, the first
+               dropped: rays_query_p50_ms; 16 re-dispatches on a resident
+               upload: device_ms_per_query; the device operations of one),
+               and LineKeysQuery on the same rays; ClearanceProcess (search
+               radius 1.0) on the NDT-TM frame's map, cold, then warm
+               (clearance_sec), then after a 16,384-ray delta in one corner
+               (clearance_incremental_sec, the dirty regions only); the
+               card against the port on the CPU: terminal states, voxels,
+               line keys and clearance bit for bit, ranges and volumes
+               within rtol 1e-5
   k5_gather_f32
                the f32 seed-gather kernel against its plain version on a
                sorted stream of ~1.2M ids with sentinel padding over two
@@ -272,7 +307,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ohm_tpu_torch import TorchNdtMap, TorchRayMapper, TorchTsdfMap, native
 from ohm_tpu_torch.core import subvoxel
-from ohm_tpu_torch.core.layout import (COVARIANCE_LAYER, HIT_MISS_COUNT_LAYER,
+from ohm_tpu_torch.core.layout import (CLEARANCE_LAYER, COVARIANCE_LAYER, HIT_MISS_COUNT_LAYER,
                                        INCIDENT_NORMAL_LAYER, INTENSITY_LAYER, MEAN_LAYER,
                                        OCCUPANCY_LAYER, TOUCH_TIME_LAYER, TRAVERSAL_LAYER,
                                        TSDF_LAYER)
@@ -290,6 +325,8 @@ from ohm_tpu_torch.ops.ddawalk import walk_rays
 from ohm_tpu_torch.ops.integrate import (apply_records, apply_sample_layers, expand_records,
                                          expand_walk)
 from ohm_tpu_torch.ops.wire import decode, unpack_batch
+from ohm_tpu_torch.query import ClearanceProcess, LineKeysQuery, RaysQuery
+from ohm_tpu_torch.query.rays_query import rays_query_device
 from ohm_tpu_torch.scripts import probe_deposit
 from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, PROBE_LIBRARY_CALLS,
                                    TSDF_SPECIALS, TSDF_VISIT_STREAMS, deposit_edge_stream,
@@ -347,6 +384,16 @@ SEGMENTED_NDT_TSDF_BATCHES = 8
 SEGMENTED_NDT_TSDF_WARMUP = 6
 # Port on the card against the port on the CPU.
 PORT_TOL = {"atol": 1e-5, "rtol": 1e-5, "mean_code_identical": 0.999}
+# The NDT side layers (the NDT mapper adds its own voxel mean).
+NDT_LAYER_FLAGS = MapFlag.TRAVERSAL | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL
+NDT_LAYERS_BATCHES = 12
+# scripts/bench_modes.py's query rows.
+QUERY_SEED = 8
+QUERY_RAYS = 512
+QUERY_EXECUTES = 13
+QUERY_REDISPATCHES = 16
+CLEARANCE_RADIUS = 1.0
+CLEARANCE_DELTA_RAYS = 1 << 14
 # One H100 SXM (NVIDIA's data sheet): HBM rate, the f32 rate outside the
 # tensor cores, at which integer ops are counted too, and the dense bf16
 # tensor-core rate.
@@ -1717,7 +1764,7 @@ def phase_outdoor_mean_bench() -> dict:
           "wire_bytes_per_ray": setups[0][0].nbytes / RAYS_PER_BATCH,
           "stats": {k: stats[k] for k in ("batches", "missed_updates", "overflow",
                                           "compaction_dropped")}})
-    return {"launches": launches, "max_abs_err": errs}
+    return {"launches": launches, "max_abs_err": errs, "mapper": mapper}
 
 
 def _snapshot(x):
@@ -1938,7 +1985,7 @@ def check_k1_call(k1_call) -> dict:
     return {**row, "max_abs_err": err, "bit_identical": bool(ok)}
 
 
-def check_ndt_path_calls(k1_call, kf_call, k3_call) -> dict:
+def check_ndt_path_calls(k1_call, kf_call, k3_call, phase: str = "ndt_om_kernel_checks") -> dict:
     """Each kernel against its plain version on the arguments the NDT-OM
     path gave it (0.2 m voxels, 1024 slots, the intensity wire): K1's keys,
     missed count, overflow and end enter times, and its voxel planes on
@@ -1947,9 +1994,9 @@ def check_ndt_path_calls(k1_call, kf_call, k3_call) -> dict:
     occupancy bits and touched count, each run on its own clone of the
     arena.  Bit for bit; raises on any difference."""
     row = {"expand_keys": check_k1_call(k1_call), **check_ndt_kernel_calls(kf_call, k3_call)}
-    emit({"phase": "ndt_om_kernel_checks", "tolerance": 0, **row})
+    emit({"phase": phase, "tolerance": 0, **row})
     if not all(r["bit_identical"] for r in row.values()):
-        raise AssertionError(f"a kernel differs from its plain version on the NDT-OM path: {row}")
+        raise AssertionError(f"a kernel differs from its plain version ({phase}): {row}")
     return {name: r["max_abs_err"] for name, r in row.items()}
 
 
@@ -1990,7 +2037,7 @@ def check_ndt_kernel_calls(kf_call, k3_call) -> dict:
                                       "bit_identical": bool(k3_ok)}}
 
 
-def phase_ndt_tm_frame() -> None:
+def phase_ndt_tm_frame() -> TorchNdtMap:
     rng = np.random.default_rng(SEED)
     m = OccupancyMap(resolution=NDT_RESOLUTION, flags=MapFlag.NONE)
     mapper = TorchNdtMap(m, params=NdtParams(ndt_tm=True), capacity=NDT_CAPACITY,
@@ -2045,6 +2092,367 @@ def phase_ndt_tm_frame() -> None:
           "sync_voxels_s": sync_s, "observed_voxels": observed,
           "max_memory_allocated_bytes": peak, "deposit_and_sweep_ndt": k3_row,
           "stats": {k: stats[k] for k in ("ndt_overflow", "ndt_flagged", "missed_updates")}})
+    return mapper
+
+
+NDT_SIDE_MEMBERS = {TRAVERSAL_LAYER: "traversal", TOUCH_TIME_LAYER: "touch",
+                    INCIDENT_NORMAL_LAYER: "packed_normal"}
+
+
+def ndt_side_layers(m) -> dict:
+    """member -> {region: host array} of an NDT map's side layers."""
+    out = {}
+    for layer, member in NDT_SIDE_MEMBERS.items():
+        li = m.layer_index(layer)
+        if li >= 0:
+            out[member] = {key: np.array(c.layers[li][member]) for key, c in m.chunks.items()}
+    return out
+
+
+def ndt_layers_scene(tm: bool):
+    """ndt_scene with a timestamp per ray: (batches, intensities, stamps)."""
+    batches, intens = ndt_scene(tm)
+    stamps = [100.0 + i + np.arange(len(b) // 2) * 1e-3 for i, b in enumerate(batches)]
+    return batches, intens, stamps
+
+
+@contextlib.contextmanager
+def every_call(module, name, pick):
+    """Within the block, ``pick(args, kwargs)`` of every call of
+    ``module.name``, in order; the calls still run."""
+    fn = getattr(module, name)
+    seen = []
+
+    def wrapper(*args, **kwargs):
+        seen.append(pick(args, kwargs))
+        return fn(*args, **kwargs)
+    wrapper.launches = 0  # the wrapped function counts under its module name
+    setattr(module, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def run_ndt_layers_port(device, tm: bool, rayflow: bool):
+    """TorchNdtMap with traversal, touch time and incident normal over
+    ndt_layers_scene; returns (map, stats, each batch's K3 walk and bounds
+    key streams on the host)."""
+    batches, intens, stamps = ndt_layers_scene(tm)
+    m = OccupancyMap(resolution=0.25, flags=NDT_LAYER_FLAGS)
+    mapper = TorchNdtMap(m, NdtParams(ndt_tm=tm), capacity=64, validate=True, device=device,
+                         rayflow=rayflow)
+    with every_call(deposit_cuda, "deposit_and_sweep_ndt",
+                    lambda a, kw: (a[1].cpu(), kw["bounds_key"].cpu())) as keys:
+        for rays, inten, ts in zip(batches, intens, stamps):
+            mapper.integrate_rays(rays, intensities=inten, timestamps=ts)
+    mapper.sync_voxels()
+    return m, mapper.stats, keys
+
+
+def compare_side_layers(a: dict, b: dict) -> dict:
+    """Two runs of the port: touch times equal, traversal within PORT_TOL,
+    normal codes identical on >= 99.9% of written voxels and within one
+    quantum elsewhere."""
+    ok = a.keys() == b.keys() and all(a[m].keys() == b[m].keys() for m in a)
+    ok = ok and all(np.array_equal(a["touch"][k], b["touch"][k]) for k in a["touch"])
+    trav = max(float(np.abs(a["traversal"][k] - b["traversal"][k]).max())
+               for k in a["traversal"])
+    ok = ok and all(np.allclose(a["traversal"][k], b["traversal"][k], atol=PORT_TOL["atol"],
+                                rtol=PORT_TOL["rtol"]) for k in a["traversal"])
+    normal = code_agreement(a["packed_normal"], b["packed_normal"], NORMAL_FIELDS)
+    ok = (ok and normal["identical"] >= PORT_TOL["mean_code_identical"]
+          and normal["max_quanta"] <= 1 and normal["written"] > 0)
+    return {"traversal_worst_abs_diff": trav, "normal_codes": normal, "ok": bool(ok)}
+
+
+def side_layers_to_oracle(ref: dict, dev: dict) -> dict:
+    """The side layers against the f64 oracle: traversal within rtol 1e-3 /
+    atol 2e-3 (tests/test_ndt.py's traversal test), touch times within
+    2 ms; the incident normal reported as the worst angle."""
+    ok = ref.keys() == dev.keys()
+    trav = touch = angle = 0.0
+    for key, ta in ref["traversal"].items():
+        tb = dev["traversal"][key]
+        ok = ok and np.allclose(tb, ta, rtol=1e-3, atol=2e-3)
+        trav = max(trav, float(np.abs(ta - tb).max()))
+        ua, ub = ref["touch"][key].astype(np.int64), dev["touch"][key].astype(np.int64)
+        ok = ok and np.array_equal(ua > 0, ub > 0)
+        touch = max(touch, float(np.abs(ua - ub).max()))
+        na, nb = ref["packed_normal"][key], dev["packed_normal"][key]
+        both = (na != 0) & (nb != 0)
+        if both.any():
+            cos = np.sum(subvoxel.decode_normal(na[both]) * subvoxel.decode_normal(nb[both]), -1)
+            angle = max(angle, float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))).max()))
+    ok = ok and touch <= 2
+    return {"traversal_worst_m": trav, "touch_worst_ms": touch, "incident_worst_deg": angle,
+            "ok": bool(ok)}
+
+
+def phase_ndt_layers_hardware_differential() -> None:
+    rows = []
+    for tm in (False, True):
+        batches, intens, stamps = ndt_layers_scene(tm)
+        oracle_map = OccupancyMap(resolution=0.25, flags=NDT_LAYER_FLAGS)
+        oracle = RayMapperNdt(oracle_map, NdtParams(ndt_tm=tm))
+        for rays, inten, ts in zip(batches, intens, stamps):
+            oracle.integrate_rays(rays, intensities=inten, timestamps=ts)
+        for rayflow in (True, False):
+            card, stats, keys = run_ndt_layers_port("cuda", tm, rayflow)
+            card2, _, _ = run_ndt_layers_port("cuda", tm, rayflow)
+            cpu, cpu_stats, cpu_keys = run_ndt_layers_port("cpu", tm, rayflow)
+            side = ndt_side_layers(card)
+            keys_equal = len(keys) == len(cpu_keys) > 0 and all(
+                torch.equal(w, cw) and torch.equal(bk, cbk)
+                for (w, bk), (cw, cbk) in zip(keys, cpu_keys))
+            occ = [(x["occupancy"].view(np.uint32), y["occupancy"].view(np.uint32))
+                   for x, y in zip(ndt_map_layers(card).values(), ndt_map_layers(cpu).values())]
+            side2 = ndt_side_layers(card2)
+            row = {"mode": "ndt_tm" if tm else "ndt_om", "wire": "rayflow" if rayflow
+                   else "segmented",
+                   "oracle": compare_to_oracle(oracle_map, card, tm),
+                   "side_layers_oracle": side_layers_to_oracle(ndt_side_layers(oracle_map), side),
+                   "card_vs_cpu": compare_port(card, cpu),
+                   "side_layers_card_vs_cpu": compare_side_layers(side, ndt_side_layers(cpu)),
+                   "walk_keys_equal_cpu": bool(keys_equal),
+                   "occupancy_bits_identical_cpu": float(np.mean(np.concatenate(
+                       [x == y for x, y in occ]))),
+                   "card_runs_bit_identical": bool(maps_bit_identical(card, card2) and all(
+                       np.array_equal(v.view(np.uint32), side2[m][k].view(np.uint32))
+                       for m in side for k, v in side[m].items())),
+                   "stats": {k: stats[k] for k in ("segments", "ndt_flagged", "ndt_overflow",
+                                                   "missed_updates", "overflow",
+                                                   "compaction_dropped")},
+                   "stats_equal_cpu": stats == cpu_stats}
+            row["ok"] = bool(row["oracle"]["ok"] and row["side_layers_oracle"]["ok"]
+                             and row["card_vs_cpu"]["ok"] and row["side_layers_card_vs_cpu"]["ok"]
+                             and keys_equal and row["card_runs_bit_identical"]
+                             and row["stats_equal_cpu"] and stats["ndt_flagged"] > 0)
+            rows.append(row)
+    emit({"metric": "ndt_layers_hardware_differential", "cases": rows,
+          "ok": all(r["ok"] for r in rows)})
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("NDT side-layer GPU differential failed")
+
+
+def time_ndt_layers_calls(k1_call, kf_call, k3_call) -> dict:
+    """K1 (voxel planes and traversal), the fused flag gather and K3 on the
+    arguments the side-layer NDT path gave them: each call beside its plain
+    version in turns, each kernel alone, and each one's bound."""
+    (b, cfg0), kw = k1_call
+    (occ_f, count, ids, threshold, sentinel), _ = kf_call
+    (occ, walk, end, delta, dcfg), k3_kw = k3_call
+    occ_a, occ_b = occ.clone(), occ.clone()
+    calls = {
+        "expand_keys": (
+            lambda: expand_cuda.expand_keys_reference(b, cfg0, kw["exclude_origin"],
+                                                      with_vox=True, with_trav=True),
+            lambda: expand_cuda.expand_keys(b, cfg0, **kw), "expand_keys_kernel"),
+        "gather_ndt_flags": (
+            lambda: gather_cuda.gather_ndt_flags_reference(occ_f, count, ids, threshold,
+                                                           sentinel),
+            lambda: gather_cuda.gather_ndt_flags(occ_f, count, ids, threshold, sentinel),
+            "NdtFlagSource"),
+        "deposit_and_sweep_ndt": (
+            lambda: deposit_cuda.deposit_and_sweep_ndt_reference(occ_a, walk, end, delta, dcfg),
+            lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg, **k3_kw),
+            K3_KERNELS)}
+    ms, plain_ms, alone_ms = {}, {}, {}
+    for name, (plain, kern, kernel_name) in calls.items():
+        plain_ms[name], ms[name] = plain_vs_kernel_ms(plain, kern)
+        alone_ms[name] = device_profile(kern, kernel_name)["kernel_ms"]
+    dk, dv = delta
+    changed = distinct(torch.cat([walk >> 1, end >> 1, (dk >> 1)[dv != 0]]), dcfg.sentinel)
+    n_keys = walk.numel() + end.numel() + dk.numel()
+    bounds = {"expand_keys": k1_bound(b, cfg0, with_vox=True, with_trav=True),
+              "gather_ndt_flags": bound(8 * ids.numel() + 8 * distinct(ids, sentinel),
+                                        6 * ids.numel()),
+              "deposit_and_sweep_ndt": bound(4 * walk.numel() + 4 * end.numel()
+                                             + 8 * dk.numel() + 8 * changed + 4,
+                                             2 * n_keys + 18 * changed)}
+    return {"ms": ms, "plain_ms": plain_ms, "alone_ms": alone_ms, "bound": bounds,
+            "walk_keys": walk.numel(), "k_stream": dk.numel()}
+
+
+def phase_ndt_layers_bench() -> dict:
+    rng = np.random.default_rng(SEED)
+    m = OccupancyMap(resolution=NDT_RESOLUTION, flags=NDT_LAYER_FLAGS)
+    mapper = TorchNdtMap(m, capacity=NDT_CAPACITY, device="cuda")
+    n = NDT_LAYERS_BATCHES
+    batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(n)]
+    stamps = [1000.0 + 0.1 * i + np.arange(RAYS_PER_BATCH) * 1e-5 for i in range(n)]
+    mapper.prime_caps(batches)
+    for i in range(NDT_WARMUP):
+        mapper.integrate_rays(batches[i % n], timestamps=stamps[i % n])
+    overflow_before = mapper.stats["ndt_overflow"]
+
+    # One more batch, its kernel calls captured and each held against its
+    # plain version, then timed on the same arguments.
+    with first_call_args(expand_cuda, "expand_keys") as k1_args, \
+            first_call_args(gather_cuda, "gather_ndt_flags") as kf_args, \
+            first_call_args(deposit_cuda, "deposit_and_sweep_ndt") as k3_args:
+        mapper.integrate_rays(batches[0], timestamps=stamps[0])
+    torch.cuda.synchronize()
+    if not (k1_args[0][1].get("with_vox") and k1_args[0][1].get("with_trav")):
+        raise AssertionError("the NDT side-layer path did not ask K1 for voxels and traversal")
+    errs = check_ndt_path_calls(k1_args[0], kf_args[0], k3_args[0], "ndt_layers_kernel_checks")
+    errs.pop("gather_plane")
+    timing = time_ndt_layers_calls(k1_args[0], kf_args[0], k3_args[0])
+    del k1_args, kf_args, k3_args
+
+    # The side-layer NDT path, counted: every count is 0 just before it.
+    counters = {"expand_keys": expand_cuda.expand_keys,
+                "gather_ndt_flags": gather_cuda.gather_ndt_flags,
+                "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt,
+                "gather_plane": gather_cuda.gather_plane}
+    for fn in counters.values():
+        fn.launches = 0
+    batches_before = mapper.stats["batches"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with without_gc_pauses():
+        t0 = time.perf_counter()
+        for rays, ts in zip(batches, stamps):
+            mapper.integrate_rays(rays, timestamps=ts)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    stats = mapper.stats
+    for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
+        if stats[name]:
+            raise AssertionError(f"NDT side-layer path reported {name}={stats[name]}")
+    dispatched = stats["batches"] - batches_before
+    if (min(n for name, n in launches.items() if name != "gather_plane") <= 0
+            or launches["expand_keys"] != dispatched or launches["gather_plane"]):
+        raise AssertionError(f"NDT side-layer path launches {launches} over {dispatched} batches")
+
+    host_prep_ms, device_ms, _, _ = device_and_host_ms(mapper, batches, stamps)
+    syncs = count_host_syncs(lambda: mapper.integrate_rays(batches[0], timestamps=stamps[0]))
+    mapper._drain_stats()
+    profile_main_path(mapper, batches[:8], path="ndt_layers", stamps=stamps[:8])
+
+    # What comes out: every side layer written, values finite.
+    mapper.sync_voxels()
+    side = ndt_side_layers(m)
+    written = {member: sum(int(np.count_nonzero(v)) for v in side[member].values())
+               for member in side}
+    lay = ndt_map_layers(m)
+    finite = all(np.isfinite(v).all() for v in side["traversal"].values()) and all(
+        np.isfinite(d["cov"]).all() for d in lay.values())
+    if min(written.values()) == 0 or not finite or stats["ndt_flagged"] == 0:
+        raise AssertionError(f"NDT side-layer bench map: written={written} finite={finite}")
+    emit({"metric": "ndt_layers_rays_per_sec", "value": RAYS_PER_BATCH * n / elapsed,
+          "unit": "rays/s", "batches": n, "warmup": NDT_WARMUP,
+          "rays_per_batch": RAYS_PER_BATCH, "resolution": NDT_RESOLUTION,
+          "capacity": NDT_CAPACITY, "miss_k": mapper.miss_k,
+          "layers": sorted(mapper.arena.layers), "arena_bytes": sum(
+              t.numel() * t.element_size() for t in mapper.arena.layers.values()),
+          "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
+          "host_syncs_per_batch": syncs, "launches": launches,
+          "kernel_ms": timing["ms"], "plain_ms": timing["plain_ms"],
+          "kernel_alone_ms": timing["alone_ms"], "bound": timing["bound"],
+          "walk_keys_per_batch": timing["walk_keys"], "k_stream": timing["k_stream"],
+          "timed_ndt_overflow": stats["ndt_overflow"] - overflow_before,
+          "written_voxels": written,
+          "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped",
+                                          "ndt_overflow", "ndt_flagged")},
+          "max_memory_allocated_bytes": peak})
+    return {"launches": launches, "max_abs_err": errs, **timing}
+
+
+def phase_queries(outdoor_mapper, tm_mapper) -> dict:
+    """scripts/bench_modes.py's query rows on the port: RaysQuery on the
+    outdoor mean map, the clearance field of the NDT-TM frame's map; each
+    against the port on the CPU."""
+    rng = np.random.default_rng(QUERY_SEED)
+    qrays = outdoor_rays(QUERY_RAYS, rng)
+    q = RaysQuery(mapper=outdoor_mapper)
+    lat = []
+    for _ in range(QUERY_EXECUTES):
+        q.set_rays(qrays)
+        t0 = time.perf_counter()
+        q.execute()
+        lat.append(time.perf_counter() - t0)
+    lat = sorted(lat[1:])  # the first execute builds the upload path's caches
+    call = q._prepare_device_call()
+    dev_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with without_gc_pauses():
+            t0 = time.perf_counter()
+            for _ in range(QUERY_REDISPATCHES):
+                rays_query_device(*call)
+            torch.cuda.synchronize()
+        dev_ms.append((time.perf_counter() - t0) / QUERY_REDISPATCHES * 1e3)
+    prof = device_profile(lambda: rays_query_device(*call))
+    on_cpu = RaysQuery(outdoor_mapper.map, device="cpu")
+    on_cpu.set_rays(qrays)
+    on_cpu.execute()
+    keys = [LineKeysQuery(outdoor_mapper.map, device=d) for d in ("cuda", "cpu")]
+    for k in keys:
+        k.set_rays(qrays)
+        k.execute()
+    rays_ok = (np.array_equal(q.terminal_states, on_cpu.terminal_states)
+               and np.array_equal(q.intersected_voxels, on_cpu.intersected_voxels)
+               and np.allclose(q.ranges, on_cpu.ranges, rtol=1e-5, atol=0)
+               and np.allclose(q.unobserved_volumes, on_cpu.unobserved_volumes, rtol=1e-5, atol=0)
+               and len(set(q.terminal_states.tolist())) >= 2)
+    keys_ok = (np.array_equal(keys[0].result_counts, keys[1].result_counts)
+               and all(np.array_equal(a, b) for a, b in zip(keys[0].result_keys,
+                                                            keys[1].result_keys)))
+
+    # The clearance field of the NDT-TM frame's map: cold, warm, then after
+    # a 16,384-ray delta in one corner, the dirty regions only (sync_voxels
+    # stamps every resident region it writes, as the reference's does).
+    m5 = tm_mapper.map
+    cp = ClearanceProcess(m5, search_radius=CLEARANCE_RADIUS, device="cuda")
+    t0 = time.perf_counter()
+    cp.update(force=True)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_full = cp.update(force=True)
+    warm = time.perf_counter() - t0
+    ci = m5.layer_index(CLEARANCE_LAYER)
+    full_card = {k: c.layers[ci][CLEARANCE_LAYER].copy() for k, c in m5.chunks.items()}
+    ClearanceProcess(m5, search_radius=CLEARANCE_RADIUS, device="cpu").update(force=True)
+    full_ok = all(np.array_equal(v.view(np.uint32),
+                                 m5.chunks[k].layers[ci][CLEARANCE_LAYER].view(np.uint32))
+                  for k, v in full_card.items())
+    within = sum(int((v >= 0).sum()) for v in full_card.values())
+    delta = box_scene_rays(CLEARANCE_DELTA_RAYS, rng, half=(3.0, 3.0, 3.0),
+                           sensor=(10.0, 10.0, 2.0))
+    tm_mapper.integrate_rays(delta, intensities=rng.uniform(0.0, 1.0, CLEARANCE_DELTA_RAYS)
+                             .astype(np.float32))
+    tm_mapper.sync_voxels()
+    dirty = [k for k, c in m5.chunks.items() if cp._processed_stamps.get(k, -1) < c.dirty_stamp]
+    t0 = time.perf_counter()
+    n_inc = cp.update()
+    incremental = time.perf_counter() - t0
+    inc_card = {k: m5.chunks[k].layers[ci][CLEARANCE_LAYER].copy() for k in dirty}
+    ClearanceProcess(m5, search_radius=CLEARANCE_RADIUS, device="cpu").update(dirty, force=True)
+    inc_ok = n_inc == len(dirty) > 0 and all(
+        np.array_equal(v.view(np.uint32), m5.chunks[k].layers[ci][CLEARANCE_LAYER].view(np.uint32))
+        for k, v in inc_card.items())
+    row = {"rays_query_p50_ms": lat[len(lat) // 2] * 1e3, "rays": QUERY_RAYS,
+           "executes_ms": [x * 1e3 for x in lat],
+           "device_ms_per_query": min(dev_ms), "redispatch_ms": dev_ms,
+           "rays_query_device": prof, "segments": int(decode(call[1], call[2])["valid"].sum()),
+           "terminal_states": {int(s): int((q.terminal_states == s).sum())
+                               for s in set(q.terminal_states.tolist())},
+           "rays_query_card_vs_cpu": bool(rays_ok), "line_keys_card_vs_cpu": bool(keys_ok),
+           "line_keys": int(keys[0].result_counts.sum()),
+           "clearance_sec": warm, "clearance_cold_sec": cold, "clearance_regions": n_full,
+           "clearance_within_radius_voxels": within,
+           "clearance_card_vs_cpu": bool(full_ok),
+           "clearance_incremental_sec": incremental, "clearance_incremental_regions": n_inc,
+           "clearance_incremental_card_vs_cpu": bool(inc_ok),
+           "search_radius": CLEARANCE_RADIUS, "delta_rays": CLEARANCE_DELTA_RAYS}
+    row["ok"] = bool(rays_ok and keys_ok and full_ok and inc_ok and within > 0)
+    emit({"metric": "queries", **row})
+    if not row["ok"]:
+        raise AssertionError("the queries differ between the card and the CPU")
+    return row
 
 
 def _tsdf_config_at_bench_shape():
@@ -3492,7 +3900,11 @@ def main(argv=None) -> int:
     k4_flags = timed("k4_ndt_flags", phase_k4_flags)
     timed("ndt_hardware_differential", phase_ndt_hardware_differential)
     ndt = timed("ndt_om_rays_per_sec", phase_ndt_om_bench)
-    timed("ndt_tm_integrate_rays_per_sec", phase_ndt_tm_frame)
+    tm_mapper = timed("ndt_tm_integrate_rays_per_sec", phase_ndt_tm_frame)
+    timed("ndt_layers_hardware_differential", phase_ndt_layers_hardware_differential)
+    ndt_layers = timed("ndt_layers_rays_per_sec", phase_ndt_layers_bench)
+    timed("queries", phase_queries, outdoor["mapper"], tm_mapper)
+    del tm_mapper
     k5 = timed("k5_gather_f32", phase_k5)
     k6 = timed("k6_tsdf_deposit", phase_k6)
     visits = timed("tsdf_visits", phase_tsdf_visits)
@@ -3525,7 +3937,8 @@ def main(argv=None) -> int:
         row("expand_keys", "expand.cu", "ohm_tpu/ops/expand_pallas.py:185", bench,
             max(k1["max_abs_err"], k1_trav["max_abs_err"], k1_vox["max_abs_err"],
                 layers["max_abs_err"]["expand_keys"], outdoor["max_abs_err"]["expand_keys"],
-                ndt["max_abs_err"]["expand_keys"], tsdf["max_abs_err"]["expand_keys"]),
+                ndt["max_abs_err"]["expand_keys"], tsdf["max_abs_err"]["expand_keys"],
+                ndt_layers["max_abs_err"]["expand_keys"]),
             layers_launches=layers["launches"]["expand_keys"],
             outdoor_mean_launches=outdoor["launches"]["expand_keys"],
             ndt_om_launches=ndt["launches"]["expand_keys"],
@@ -3543,6 +3956,13 @@ def main(argv=None) -> int:
                           for k in ("keys", "traversal", "voxel_planes")},
             with_vox_kernel_alone_ms=tsdf["k1_alone_ms"],
             ndt_om_with_vox_kernel_alone_ms=ndt["alone_ms"]["expand_keys"],
+            # Voxel planes and traversal in one call: the NDT side-layer path.
+            ndt_layers_launches=ndt_layers["launches"]["expand_keys"],
+            with_vox_trav_ms=ndt_layers["ms"]["expand_keys"],
+            with_vox_trav_plain_ms=ndt_layers["plain_ms"]["expand_keys"],
+            with_vox_trav_bound_ms=ndt_layers["bound"]["expand_keys"]["bound_ms"],
+            with_vox_trav_bound_by=ndt_layers["bound"]["expand_keys"]["bound_by"],
+            with_vox_trav_kernel_alone_ms=ndt_layers["alone_ms"]["expand_keys"],
             # The segmented wire carries no candidate table: K1 never runs there.
             segmented_launches=seg["launches"]["expand_keys"],
             clearing_launches=clearing["launches"]["expand_keys"],
@@ -3570,7 +3990,13 @@ def main(argv=None) -> int:
             wrapper_cost=wrappers["deposit_and_sweep"]),
         row("deposit_and_sweep_ndt", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:449", ndt,
             max(k3["max_abs_err"], ndt["max_abs_err"]["deposit_and_sweep_ndt"],
-                seg_nt["max_abs_err"]["deposit_and_sweep_ndt"]),
+                seg_nt["max_abs_err"]["deposit_and_sweep_ndt"],
+                ndt_layers["max_abs_err"]["deposit_and_sweep_ndt"]),
+            ndt_layers_launches=ndt_layers["launches"]["deposit_and_sweep_ndt"],
+            ndt_layers_ms=ndt_layers["ms"]["deposit_and_sweep_ndt"],
+            ndt_layers_plain_ms=ndt_layers["plain_ms"]["deposit_and_sweep_ndt"],
+            ndt_layers_kernel_alone_ms=ndt_layers["alone_ms"]["deposit_and_sweep_ndt"],
+            ndt_layers_bound_ms=ndt_layers["bound"]["deposit_and_sweep_ndt"]["bound_ms"],
             segmented_ndt_om_launches=seg_nt["launches"]["ndt_om"]["deposit_and_sweep_ndt"],
             segmented_ndt_om_ms=seg_nt["ms"]["deposit_and_sweep_ndt"],
             segmented_ndt_om_plain_ms=seg_nt["plain_ms"]["deposit_and_sweep_ndt"],
@@ -3595,7 +4021,13 @@ def main(argv=None) -> int:
         row("gather_ndt_flags", "gather.cu",
             "ohm_tpu/ops/integrate_ndt.py:195 + ohm_tpu/ops/deposit_pallas.py:479", ndt,
             max(k4_flags["max_abs_err"], ndt["max_abs_err"]["gather_ndt_flags"],
-                seg_nt["max_abs_err"]["gather_ndt_flags"]),
+                seg_nt["max_abs_err"]["gather_ndt_flags"],
+                ndt_layers["max_abs_err"]["gather_ndt_flags"]),
+            ndt_layers_launches=ndt_layers["launches"]["gather_ndt_flags"],
+            ndt_layers_ms=ndt_layers["ms"]["gather_ndt_flags"],
+            ndt_layers_plain_ms=ndt_layers["plain_ms"]["gather_ndt_flags"],
+            ndt_layers_kernel_alone_ms=ndt_layers["alone_ms"]["gather_ndt_flags"],
+            ndt_layers_bound_ms=ndt_layers["bound"]["gather_ndt_flags"]["bound_ms"],
             segmented_ndt_om_launches=seg_nt["launches"]["ndt_om"]["gather_ndt_flags"],
             segmented_ndt_om_ms=seg_nt["ms"]["gather_ndt_flags"],
             segmented_ndt_om_plain_ms=seg_nt["plain_ms"]["gather_ndt_flags"],

@@ -17,8 +17,12 @@ per batch; flagged records beyond it fall back to standard misses and are
 counted in ``stats["ndt_overflow"]``.  The default (65536) sizes itself once
 from the fourth batch's flagged count (2x headroom, a power of two, at least
 4096) and escalates after an overflow; an int pins it; ``"exact"`` lets
-every record through.  Traversal, touch time and incident layers under NDT
-raise NotImplementedError (not ported yet).
+every record through.  With the traversal layer, the flagged records beyond
+``miss_k`` drop in compacted-stream order, as the reference's do there.
+
+The map's traversal, touch-time and incident-normal layers integrate as the
+reference's NDT mapper integrates them; any other layer stays as the host
+map holds it.
 """
 
 from __future__ import annotations
@@ -27,8 +31,6 @@ import logging
 
 import numpy as np
 
-from ohm_tpu_torch.core.layout import (COVARIANCE_LAYER, HIT_MISS_COUNT_LAYER,
-                                 INTENSITY_LAYER, MEAN_LAYER, OCCUPANCY_LAYER)
 from ohm_tpu_torch.core.probability import value_to_probability
 from ohm_tpu_torch.oracle.ndt import NdtParams, ndt_adaptation_rate_from_miss_probability
 from ohm_tpu_torch.mapping.torch_map import TorchRayMapper
@@ -71,19 +73,13 @@ class TorchNdtMap(TorchRayMapper):
                          stream_budget=stream_budget, device=device,
                          segment_length=segment_length, rayflow=rayflow)
 
-    def _check_layers(self, map_obj) -> None:
-        allowed = {OCCUPANCY_LAYER, MEAN_LAYER, COVARIANCE_LAYER}
-        if self.params.ndt_tm:
-            allowed |= {INTENSITY_LAYER, HIT_MISS_COUNT_LAYER}
-        others = [layer.name for layer in map_obj.layout.layers if layer.name not in allowed]
-        if others:
-            raise NotImplementedError(
-                f"map layers {others} under NDT are not ported yet")
-
     def _arena_layers(self) -> tuple[list[str], str]:
         names = ["occupancy", "mean_coord", "mean_count", "cov"]
         if self.params.ndt_tm:
             names += ["intensity", "hit_count", "miss_count"]
+        names += [name for name, on in (("traversal", self.with_traversal),
+                                        ("touch_time", self.with_touch),
+                                        ("incident", self.with_incident)) if on]
         return names, "inf"
 
     def _segmented_config(self, prepared, ray_update_flags) -> IntegrateConfig:

@@ -2,12 +2,13 @@
 
 Counterpart of ``TpuRayMapper`` (``ohm_tpu/mapping/tpu_map.py``) for the
 occupancy layer and any of the side layers voxel mean, traversal, touch
-time and incident normal.  A batch takes the rayflow wire (per-ray records)
-unless the flags include STOP_ON_FIRST_OCCUPIED, the arena holds more than
-8191 regions, or the batch leaves the rayflow envelope (more than 65535
-rays, a ray over 32 regions, a region bbox over 63); then it takes the
-segmented wire (per-segment records, each segment at most one region edge
-long), as the reference does.  Per batch:
+time and incident normal; any other layer of the map stays as the host map
+holds it, as the reference leaves it.  A batch takes the rayflow wire
+(per-ray records) unless the flags include STOP_ON_FIRST_OCCUPIED, the
+arena holds more than 8191 regions, or the batch leaves the rayflow
+envelope (more than 65535 rays, a ray over 32 regions, a region bbox over
+63); then it takes the segmented wire (per-segment records, each segment at
+most one region edge long), as the reference does.  Per batch:
 
   host prep      rayflow: mapping.batch.prepare_rayflow / rayflow_wire;
                  segmented: prepare_ray_batch / fill_corner_slots /
@@ -34,8 +35,7 @@ raised.  The TPU levers (fused, delta, chained dispatch, coalesced
 transfers, scatter windows) are not ported.
 
 Subclasses (mapping.ndt_map.TorchNdtMap, mapping.tsdf_map.TorchTsdfMap)
-override the hooks: the layer
-check ``_check_layers``, the arena's layers ``_arena_layers``, the wire's
+override the hooks: the arena's layers ``_arena_layers``, the wire's
 intensity block ``_rayflow_intensity``, whether STOP_ON_FIRST_OCCUPIED
 leaves the rayflow wire ``_stop_needs_segments``, the segmented config
 ``_segmented_config``, the device step ``_integrate_device`` under
@@ -51,8 +51,8 @@ import threading
 import numpy as np
 import torch
 
-from ohm_tpu_torch.core.layout import (INCIDENT_NORMAL_LAYER, MEAN_LAYER, OCCUPANCY_LAYER,
-                                       TOUCH_TIME_LAYER, TRAVERSAL_LAYER)
+from ohm_tpu_torch.core.layout import (INCIDENT_NORMAL_LAYER, MEAN_LAYER, TOUCH_TIME_LAYER,
+                                       TRAVERSAL_LAYER)
 from ohm_tpu_torch.core.rayflags import RayFlag, normalize_reverse_walk
 from ohm_tpu_torch.device import resolve_device
 from ohm_tpu_torch.mapping.arena import CacheFull, VoxelArena
@@ -115,9 +115,9 @@ class TorchRayMapper:
         self.segment_length = min(segment_length or region_edge * 0.999, region_edge * 0.999)
         self.max_steps = max_steps_for(self.segment_length, map_obj.resolution)
 
-        self._check_layers(map_obj)
         # The side layers the map holds, as the reference's config carries
-        # them; the NDT and TSDF mappers integrate none of them.
+        # them (the TSDF mapper integrates none of them); every other layer
+        # stays as the host map holds it.
         (self.with_mean, self.with_traversal, self.with_touch,
          self.with_incident) = (map_obj.layer_index(name) >= 0 for name in SIDE_LAYERS)
         names, encoding = self._arena_layers()
@@ -137,15 +137,6 @@ class TorchRayMapper:
         self._queue = None
         self._worker = None
         self._worker_error = None
-
-    def _check_layers(self, map_obj) -> None:
-        """Raise for map layers this mapper does not integrate."""
-        others = [layer.name for layer in map_obj.layout.layers
-                  if layer.name not in (OCCUPANCY_LAYER, *SIDE_LAYERS)]
-        if others:
-            raise NotImplementedError(
-                f"map layers other than occupancy, mean, traversal, touch time "
-                f"and incident normal are not ported yet: {others}")
 
     def _arena_layers(self) -> tuple[list[str], str]:
         """The arena's layers and its occupancy encoding."""

@@ -7,10 +7,11 @@ never written: the TSDF mapper updates its own layer only, as the
 reference's does), ``tsdf_weight`` and ``tsdf_distance``.  A batch takes
 the segmented wire (with t0 and full_length in its float block) where the
 reference's does: an arena over 8191 regions or a batch outside the rayflow
-envelope.  Per batch the device step is ops.integrate_tsdf.integrate_tsdf
-(the walk front end, kernel K1 with voxel planes on the rayflow wire; the
-fused per-visit kernel).  Ray update flags are ignored, as in the
-reference's RayMapperTsdf.
+envelope.  Layers other than TSDF stay as the host map holds them.  Per
+batch the device step is ops.integrate_tsdf.integrate_tsdf (the walk front
+end, kernel K1 with voxel planes on the rayflow wire; the fused per-visit
+kernel).  Ray update flags are ignored, as in the reference's
+RayMapperTsdf.
 """
 
 from __future__ import annotations
@@ -37,10 +38,6 @@ class TorchTsdfMap(TorchRayMapper):
         super().__init__(map_obj, capacity=capacity, validate=validate,
                          stream_budget=stream_budget, device=device,
                          segment_length=segment_length, rayflow=rayflow)
-
-    def _check_layers(self, map_obj) -> None:
-        """Every layout is accepted: layers other than TSDF stay as the host
-        map holds them."""
 
     def _arena_layers(self) -> tuple[list[str], str]:
         return ["occupancy", "tsdf_weight", "tsdf_distance"], "inf"

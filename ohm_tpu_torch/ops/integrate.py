@@ -394,29 +394,32 @@ def apply_sample_layers(layers: dict, records: dict, b: dict, cfg: IntegrateConf
         # u32 add on int32 bit patterns: the same bits, wrapping alike.
         layers["mean_count"][ids] = old_count_bits + k.to(torch.int32)
     if cfg.with_touch_time:
-        # A u32 maximum: flipping bit 31 maps unsigned order onto int32's.
-        flip = -(1 << 31)
         touch = torch.where(end_is_hit, b["touch_enc"], torch.zeros_like(b["touch_enc"]))
-        _, tmax = segments.segment_reduce(s_sorted, touch[order] ^ flip, "max")
-        layers["touch_time"][ids] = tmax[at] ^ flip
+        layers["touch_time"][ids] = segments.segment_u32_max(s_sorted, touch[order])[at]
     if cfg.with_incident:
-        inc_sums = sums[:, j:j + 3]
-        old_packed = layers["incident"][ids]
-        old_normal = subvoxel.decode_normal(old_packed)
-        has_old = torch.any(old_normal != 0, dim=-1)
         if cfg.with_mean:
             # The count stored by the mean update above, as the reference
             # reads it after its scatter.
             prior = torch.clamp(_u32_to_f32(layers["mean_count"][ids]) - k, min=0.0)
         else:
             prior = torch.zeros_like(k)
-        w = torch.where(has_old, prior, torch.zeros_like(prior))
-        merged = old_normal * w[:, None] + inc_sums
-        sq = merged * merged
-        norm = subvoxel.sqrt_f32(sq[:, 0] + sq[:, 1] + sq[:, 2])
-        unit = merged / torch.clamp(norm, min=1e-12)[:, None]
-        unit = torch.where((norm > 1e-6)[:, None], unit, torch.zeros_like(unit))
-        # A denormal quotient is written as zero there too, so it sets
-        # neither the sign bit nor the set bit.
-        unit = subvoxel.flush_denormals(unit)
-        layers["incident"][ids] = subvoxel.encode_normal(unit)
+        layers["incident"][ids] = merge_incident(layers["incident"][ids], prior,
+                                                 sums[:, j:j + 3])
+
+
+def merge_incident(old_packed, prior, inc_sums):
+    """New packed normals (int32 patterns) of voxels whose old pattern is
+    ``old_packed``: the old normal weighted by ``prior`` (by 0 where it is
+    unset) plus the batch's sum of the hits' negated directions, normalised
+    (the reference's incident update, ohm/VoxelIncidentCompute.h)."""
+    old_normal = subvoxel.decode_normal(old_packed)
+    has_old = torch.any(old_normal != 0, dim=-1)
+    w = torch.where(has_old, prior, torch.zeros_like(prior))
+    merged = old_normal * w[:, None] + inc_sums
+    sq = merged * merged
+    norm = subvoxel.sqrt_f32(sq[:, 0] + sq[:, 1] + sq[:, 2])
+    unit = merged / torch.clamp(norm, min=1e-12)[:, None]
+    unit = torch.where((norm > 1e-6)[:, None], unit, torch.zeros_like(unit))
+    # A denormal quotient is written as zero there too, so it sets neither
+    # the sign bit nor the set bit.
+    return subvoxel.encode_normal(subvoxel.flush_denormals(unit))

@@ -1,26 +1,34 @@
-"""NDT-OM / NDT-TM integration of one batch (rayflow or segmented wire).
+"""NDT-OM / NDT-TM integration of one batch (rayflow or segmented wire),
+with the side layers voxel mean (always), traversal, touch time and
+incident normal.
 
-Counterpart of the kernel path of ``integrate_ndt`` in
-``ohm_tpu/ops/integrate_ndt.py`` (the branch the JAX package takes on a TPU,
-with its expand and deposit kernels):
+Counterpart of ``integrate_ndt`` in ``ohm_tpu/ops/integrate_ndt.py``: the
+branch the JAX package takes on a TPU (its expand and deposit kernels), and
+with the traversal layer the branch it takes then (its deposit kernel off,
+integrate_ndt.py:183-184), whose semantics differ in two places:
 
   expand     the walk front end with voxel planes (ops.integrate.expand_walk:
              K1 on the rayflow wire, the plain walk and the corner-slot
-             resolve on the segmented one); end records; group compaction
-             carrying each record's position as a payload
+             resolve on the segmented one), with each record's traversal
+             when the map has that layer; end records; group compaction
+             carrying each record's position (and traversal) as payloads
   miss phase one stable sort of the compacted ids; the fused flag gather
              (ops.gather_cuda.gather_ndt_flags, K4's kernel reading occupancy
              and mean_count) flags the Gaussian records; the first
-             ``miss_k`` flagged records in sorted-stream order run the NDT
-             miss math, the rest
+             ``miss_k`` flagged records run the NDT miss math and the rest
              of the flagged ones fall back to standard misses (counted in
-             ``ndt_overflow``); per-voxel delta sums over the K stream
+             ``ndt_overflow``): first in sorted-stream order, or, with
+             traversal, in compacted-stream order (the reference's second
+             drop order); per-voxel delta (and traversal) sums over the K
+             stream, whose traversal is deposited first
   hit phase  a stable sort on (voxel << 32 | ray_order) and the closed-form
              batch covariance merge; for NDT-TM the consistency tallies, the
-             exact intensity recursion and the hit/miss counters
+             exact intensity recursion and the hit/miss counters; the touch
+             time (a u32 maximum) and the incident normal
   deposit    K3 (ops.deposit_cuda.deposit_and_sweep_ndt): the standard
              counts of both streams (the walk with its unmasked bounds)
-             and the sparse miss delta, swept in place
+             and the sparse miss delta, swept in place; with traversal, the
+             standard and end records' traversal sums
 
 The arena is a dict of layer tensors (mapping.arena.VoxelArena.layers),
 updated in place; the hit phase reads the batch-start occupancy, so K3 runs
@@ -38,8 +46,10 @@ from ohm_tpu_torch.core.rayflags import RayFlag
 from ohm_tpu_torch.ops import deposit_cuda, gather_cuda, ndt as ndtops
 from ohm_tpu_torch.ops.config import NdtConfig
 from ohm_tpu_torch.ops.ddawalk import f32
-from ohm_tpu_torch.ops.integrate import expand_walk, group_rows, resolve_voxels
-from ohm_tpu_torch.ops.segments import cumsum, segment_reduce, segment_sums
+from ohm_tpu_torch.ops.integrate import expand_walk, group_rows, merge_incident, resolve_voxels
+from ohm_tpu_torch.ops.segments import (_first_last, cumsum, segment_reduce, segment_sums,
+                                        segment_u32_max)
+from ohm_tpu_torch.ops.subvoxel import flush_denormals
 from ohm_tpu_torch.ops.subvoxel import sub_voxel_coord, sub_voxel_to_local_coord
 
 
@@ -62,10 +72,13 @@ def _store(layer: torch.Tensor, ids: torch.Tensor, write: torch.Tensor,
     layer.index_put_((idx,), torch.where(mask, values, torch.zeros_like(values)))
 
 
-def _miss_phase(arena: dict, b: dict, ids_c, pos_c, walk_vox, S: int, cfg: NdtConfig):
-    """Sorted-stream miss phase (integrate_ndt.py:186-292).  Returns the
-    sorted ids, the applied-NDT mask, the K stream's ids and per-voxel
-    running sums, and the stats."""
+def _miss_phase(arena: dict, b: dict, ids_c, pos_c, trav_c, walk_vox, S: int,
+                cfg: NdtConfig):
+    """The miss phase (integrate_ndt.py:186-292).  ``trav_c`` is the
+    compacted stream's traversal, or None without the layer.  Returns the
+    sorted ids and their stable sort's order, the applied-NDT mask in
+    sorted order, the K stream's ids, lasts and per-voxel running sums
+    (delta, miss tally, and with traversal the traversal), and the stats."""
     base = cfg.base
     sentinel = base.sentinel
     M = ids_c.shape[0]
@@ -77,16 +90,33 @@ def _miss_phase(arena: dict, b: dict, ids_c, pos_c, walk_vox, S: int, cfg: NdtCo
     flag = gather_cuda.gather_ndt_flags(arena["occupancy"], arena["mean_count"], sids,
                                         cfg.sample_threshold, sentinel)
     is_ndt = flag > 0
-
-    # Flagged records first, then the rest, each in sorted-stream order: a
-    # rank from a cumsum and one write per record into a permutation.
-    rank_f = cumsum(flag) - flag
     n_flag = flag.sum()
+    if trav_c is None:
+        # The first K flagged records in sorted-stream order take the math.
+        rank_f = cumsum(flag) - flag
+        applied = is_ndt & (rank_f < K)
+        take, rank_t, n_take = is_ndt, rank_f, n_flag
+    else:
+        # The first K in compacted-stream order (integrate_ndt.py:217-238):
+        # the rank counts in that order (the flags taken back through the
+        # sort's inverse), and the K stream is the records it admits, in
+        # sorted order.  The stable sort keeps compacted order within a
+        # voxel's run and the flag is the voxel's, so they are still a
+        # prefix of each run, as K3's bounds contract needs.
+        flag_c = torch.empty_like(flag)
+        flag_c[order] = flag
+        applied = is_ndt & ((cumsum(flag_c) - flag_c)[order] < K)
+        take = applied
+        a = applied.to(torch.int32)
+        rank_t = cumsum(a) - a
+        n_take = a.sum()
+
+    # Taken records first, then the rest, each in sorted-stream order: a
+    # rank from a cumsum and one write per record into a permutation.
     seq = torch.arange(M, dtype=torch.int32, device=ids_c.device)
-    target = torch.where(is_ndt, rank_f, n_flag + (seq - rank_f))
+    target = torch.where(take, rank_t, n_take + (seq - rank_t))
     sel_k = torch.empty_like(seq).scatter_(0, target.long(), seq)[:K]
-    active_k = torch.arange(K, dtype=torch.int32, device=ids_c.device) < n_flag
-    ndt_applied = is_ndt & (rank_f < K)
+    active_k = torch.arange(K, dtype=torch.int32, device=ids_c.device) < n_take
     overflow_ndt = torch.clamp(n_flag - K, min=0)
     ids_k = torch.where(active_k, sids[sel_k], torch.full_like(sel_k, sentinel))
     pos_k = spos[sel_k]
@@ -102,20 +132,24 @@ def _miss_phase(arena: dict, b: dict, ids_c, pos_c, walk_vox, S: int, cfg: NdtCo
         cov_k, sensor_k, sample_k, mean_k, cfg.adaptation_rate, cfg.sensor_noise)
     delta_k = torch.where(active_k, delta_k, torch.zeros_like(delta_k))
     is_miss_k = is_miss_k & active_k
+    cols = [delta_k, is_miss_k.to(torch.float32)]
+    if trav_c is not None:
+        trav_k = trav_c[order[sel_k]]
+        cols.append(torch.where(active_k, trav_k, torch.zeros_like(trav_k)))
     # ids_k is ascending already (selection keeps the sorted order, inactive
     # records are sentinels at the back), so the reference's stable sort of
     # the K stream is the identity and is skipped.
-    k_last, k_red = segment_reduce(
-        ids_k, torch.stack([delta_k, is_miss_k.to(torch.float32)], dim=1))
-    return sids, ndt_applied, ids_k, k_last, k_red, {
+    k_last, k_red = segment_reduce(ids_k, torch.stack(cols, dim=1))
+    return sids, order, applied, ids_k, k_last, k_red, {
         "ndt_overflow": overflow_ndt, "ndt_flagged": n_flag}
 
 
 def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
     """Integrate one decoded batch (ops.wire.decode, with the intensities
     for NDT-TM) into ``arena`` (layer name -> tensor:
-    occupancy (+inf unobserved), mean_coord, mean_count, cov [N,6], and for
-    NDT-TM intensity [N,2], hit_count, miss_count), in place.
+    occupancy (+inf unobserved), mean_coord, mean_count, cov [N,6], for
+    NDT-TM intensity [N,2], hit_count, miss_count, and any of traversal,
+    touch_time and incident), in place.
 
     Returns the stats as 0-dim tensors: missed_updates, overflow, touched,
     ndt_overflow, ndt_flagged, compaction_dropped."""
@@ -124,13 +158,18 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
     sentinel = base.sentinel
     dev = b["start_abs"].device
     ray_valid = b["valid"]
+    with_trav = base.with_traversal
 
     walk_flat, aux = expand_walk(
-        b, base, exclude_origin=bool(flags & RayFlag.EXCLUDE_ORIGIN), with_vox=True)
+        b, base, exclude_origin=bool(flags & RayFlag.EXCLUDE_ORIGIN), with_vox=True,
+        with_trav=with_trav)
     walk_missed_n = aux["missed_n"]
+    walk_trav = aux.get("trav")
     if flags & RayFlag.EXCLUDE_RAY:
         walk_flat = torch.full_like(walk_flat, sentinel)
         walk_missed_n = torch.zeros_like(walk_missed_n)
+        if with_trav:
+            walk_trav = torch.zeros_like(walk_trav)
     B, S = walk_flat.shape
     overflow_n = (aux["overflow"] & ray_valid).sum() + aux["truncated"]
 
@@ -142,9 +181,11 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
         end_is_miss = torch.zeros_like(end_is_miss)
     end_any = end_is_hit | end_is_miss
 
-    # Group compaction; the record position rides along (stable row sort).
+    # Group compaction; the record position (and traversal) rides along
+    # (stable row sort).
     flat_ids = walk_flat.reshape(-1)
     pos = torch.arange(B * S, dtype=torch.int32, device=dev)
+    trav_c = walk_trav.reshape(-1) if with_trav else None
     compaction_dropped = torch.zeros((), dtype=torch.int64, device=dev)
     G = base.group_size
     if base.group_cap and B % G == 0 and base.group_cap < G * S:
@@ -152,14 +193,17 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
         n_valid = (rows < sentinel).sum()
         rows, order = torch.sort(rows, dim=1, stable=True)
         rows = rows[:, :base.group_cap]
-        pos_rows = torch.gather(group_rows(pos, B, S, G), 1, order[:, :base.group_cap])
+        order = order[:, :base.group_cap]
+        pos_c = torch.gather(group_rows(pos, B, S, G), 1, order).reshape(-1)
+        if with_trav:
+            trav_c = torch.gather(group_rows(trav_c, B, S, G), 1, order).reshape(-1)
         compaction_dropped = n_valid - (rows < sentinel).sum()
-        ids_c, pos_c = rows.reshape(-1), pos_rows.reshape(-1)
+        ids_c = rows.reshape(-1)
     else:
         ids_c, pos_c = flat_ids, pos
 
-    sids, ndt_applied, ids_k, k_last, k_red, stats = _miss_phase(
-        arena, b, ids_c, pos_c, aux["vox"], S, cfg)
+    sids, order, ndt_applied, ids_k, k_last, k_red, stats = _miss_phase(
+        arena, b, ids_c, pos_c, trav_c, aux["vox"], S, cfg)
     k_write = k_last & (ids_k != sentinel)
     # Sparse delta stream (NDT-OM and NDT-TM): id-sorted, one nonzero value
     # per voxel, at its last record.
@@ -169,6 +213,11 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
         pending_tm_miss = torch.zeros(arena["occupancy"].shape[0], dtype=torch.float32,
                                       device=dev)
         _store(pending_tm_miss, ids_k, k_write, k_red[:, 1], sentinel)
+    if with_trav:
+        # The traversal of the records the NDT math took goes in first
+        # (integrate_ndt.py:305-309).
+        traversal = arena["traversal"]
+        _store(traversal, ids_k, k_write, traversal[ids_k] + k_red[:, 2], sentinel)
 
     _hit_phase(arena, b, end_flat, end_is_hit, cfg)
     if cfg.ndt_tm:
@@ -178,9 +227,8 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
     # end/sample records deposit with the miss delta; the sweep runs last
     # because the hit phase reads batch-start occupancy.  The walk stream
     # goes with its unmasked bounds: within a voxel's run of ``sids`` the
-    # records the NDT math took come first (the flag is the voxel's, and
-    # ``rank_f`` grows along the run), so the masked records form a prefix,
-    # as K3 needs.
+    # records the NDT math took come first (_miss_phase), so the masked
+    # records form a prefix, as K3 needs.
     std_miss = (sids != sentinel) & ~ndt_applied
     bounds = sids << 1
     walk_keys = torch.where(std_miss, bounds, torch.full_like(sids, sentinel << 1))
@@ -188,6 +236,10 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
                 | end_is_hit.to(torch.int32))
     _, touched = deposit_cuda.deposit_and_sweep_ndt(
         arena["occupancy"], walk_keys, end_keys, pending_delta, base, bounds_key=bounds)
+    if with_trav:
+        _standard_traversal(arena["traversal"], walk_keys, order, trav_c, end_keys,
+                            torch.where(end_any, b["length"] - aux["end_enter"],
+                                        torch.zeros_like(b["length"])), sentinel)
 
     stats.update({
         "missed_updates": walk_missed_n + (end_any & end_missed).sum(),
@@ -198,10 +250,25 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
     return stats
 
 
+def _standard_traversal(traversal, walk_keys, order, trav_c, end_keys, end_trav,
+                        sentinel: int) -> None:
+    """Add each voxel's standard-miss and end records' traversal, summed
+    over the key-sorted concatenation of the walk (in compacted order) and
+    end records (integrate_ndt.py:361-387), at its last record."""
+    walk_c = torch.empty_like(walk_keys)
+    walk_c[order] = walk_keys  # the masked walk keys back in compacted order
+    key_s, by_key = torch.sort(torch.cat([walk_c, end_keys]), stable=True)
+    ids_s = key_s >> 1
+    first, last = _first_last(ids_s)
+    sums = segment_sums(torch.cat([trav_c, end_trav])[by_key], first)
+    _store(traversal, ids_s, last & (ids_s != sentinel), traversal[ids_s] + sums, sentinel)
+
+
 def _hit_phase(arena: dict, b: dict, end_flat, end_is_hit, cfg: NdtConfig) -> None:
-    """Batch covariance merge per sample voxel, and for NDT-TM the
-    consistency tallies, intensity and hit/miss counters
-    (integrate_ndt.py:417-573), written in place at segment lasts."""
+    """Batch covariance merge per sample voxel, for NDT-TM the consistency
+    tallies, intensity and hit/miss counters, and the touch time and
+    incident normal (integrate_ndt.py:417-598), written in place at segment
+    lasts."""
     base = cfg.base
     sentinel = base.sentinel
     res = f32(base.resolution)
@@ -221,8 +288,12 @@ def _hit_phase(arena: dict, b: dict, end_flat, end_is_hit, cfg: NdtConfig) -> No
              "sample_threshold": cfg.sample_threshold})
         cols += [inc_hit.to(torch.float32)[:, None], inc_miss.to(torch.float32)[:, None],
                  b["intensity"][:, None]]
-    # Columns: k, z[3], zz[6] (+ TM: inc_hit, inc_miss, intensity); +0.0
-    # where the ray's end is not a sample hit.
+    if base.with_incident:
+        # The reference's first sum reads a denormal component as zero.
+        cols.append(flush_denormals(-b["direction"]))
+    # Columns: k, z[3], zz[6] (+ TM: inc_hit, inc_miss, intensity; +
+    # incident: the negated direction[3]); +0.0 where the ray's end is not
+    # a sample hit.
     payload = torch.cat(cols, dim=1)
     payload = torch.where(end_is_hit[:, None], payload, torch.zeros_like(payload))
 
@@ -282,6 +353,17 @@ def _hit_phase(arena: dict, b: dict, end_flat, end_is_hit, cfg: NdtConfig) -> No
         _store(arena["hit_count"], s_sorted, active, _f32_as_u32(new_hit), sentinel)
         _store(arena["miss_count"], s_sorted, active, _f32_as_u32(new_miss), sentinel)
 
+    if base.with_touch_time:
+        # A u32 maximum written where the voxel is active (not max(old, .)).
+        touch = torch.where(end_is_hit, b["touch_enc"], torch.zeros_like(b["touch_enc"]))
+        _store(arena["touch_time"], s_sorted, active,
+               segment_u32_max(s_sorted, touch[order]), sentinel)
+    if base.with_incident:
+        # The old normal weighs in with the batch-start mean count, by 0
+        # where the merge reset the voxel.
+        prior = torch.where(reset, torch.zeros_like(k), _u32_as_f32(count_old))
+        _store(arena["incident"], s_sorted, active,
+               merge_incident(arena["incident"][s_sorted], prior, s_red[:, -3:]), sentinel)
     _store(arena["cov"], s_sorted, active, cov_new, sentinel)
     _store(arena["mean_coord"], s_sorted, active,
            sub_voxel_coord(mean_new, base.resolution), sentinel)

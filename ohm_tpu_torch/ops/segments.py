@@ -70,6 +70,14 @@ def segment_reduce(ids_sorted: torch.Tensor, payloads: torch.Tensor, mode: str =
     return last, scanned
 
 
+def segment_u32_max(ids_sorted: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Running per-segment maximum of u32 values held as int32 bit patterns
+    [N] over sorted ``ids_sorted``: flipping bit 31 maps unsigned order onto
+    int32's."""
+    flip = -(1 << 31)
+    return segment_reduce(ids_sorted, vals ^ flip, "max")[1] ^ flip
+
+
 def cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumulative sum; integer inputs only (exact in any order,
     and torch.cumsum is deterministic)."""

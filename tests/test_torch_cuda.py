@@ -18,9 +18,10 @@ second run; the fused TSDF per-visit update (K5+K6) on its edge streams,
 bit for bit and the same bits on a second run; and the K1, K2, K4 and
 fused TSDF wrappers issuing no PyTorch op but their outputs' or scratch
 allocations.
-TorchNdtMap, TorchTsdfMap and
-TorchRayMapper with the side layers on the card must agree with themselves
-on the CPU and give the same bits on every run; so must TorchRayMapper on
+TorchNdtMap (with and without its side layers, on both wires), TorchTsdfMap
+and TorchRayMapper with the side layers on the card must agree with
+themselves on the CPU and give the same bits on every run, and so must the
+queries (RaysQuery, LineKeysQuery, ClearanceProcess); so must TorchRayMapper on
 the segmented wire, its STOP_ON_FIRST_OCCUPIED monolith included, with K2
 launched and K1 not.
 
@@ -388,6 +389,88 @@ def test_ndt_mapper_on_card_matches_cpu(cuda, tm):
             assert (a == b).mean() >= 0.999
         else:
             assert np.array_equal(a, b), k
+
+
+def _ndt_layers_run(device, tm: bool, rayflow: bool):
+    """_ndt_run's scene on a map with traversal, touch time and incident
+    normal, a timestamp per ray, on either wire."""
+    rng = np.random.default_rng(6)
+    m = OccupancyMap(resolution=0.25, flags=MapFlag.TRAVERSAL | MapFlag.TOUCH_TIME
+                     | MapFlag.INCIDENT_NORMAL)
+    mapper = TorchNdtMap(m, NdtParams(ndt_tm=tm), capacity=64, validate=True, device=device,
+                         rayflow=rayflow)
+    for i in range(6):
+        rays = np.empty((120, 3))
+        rays[0::2] = (0.0, 0.0, 2.0)
+        z = rng.normal(0, 0.005, 60) if i < 4 else np.full(60, -0.8)
+        rays[1::2] = np.column_stack([rng.uniform(-1, 1, 60), rng.uniform(-1, 1, 60), z])
+        mapper.integrate_rays(rays, intensities=rng.uniform(10, 20, 60),
+                              timestamps=10.0 + i + np.arange(60) * 1e-3)
+    mapper.sync_voxels()
+    layers = {(key, li, f): np.array(layer[f]) for key, c in m.chunks.items()
+              for li, layer in enumerate(c.layers) for f in layer.dtype.names}
+    return layers, mapper.stats
+
+
+@pytest.mark.parametrize("tm", [False, True])
+@pytest.mark.parametrize("rayflow", [True, False])
+def test_ndt_layers_mapper_on_card_matches_cpu(cuda, tm, rayflow):
+    """The NDT side layers on the card: the same bits on a second run; the
+    CPU's counts, touch times and stats, floats within 1e-5, mean and
+    normal codes identical on >= 99.9% of written voxels."""
+    card, stats = _ndt_layers_run(cuda, tm, rayflow)
+    card2, _ = _ndt_layers_run(cuda, tm, rayflow)
+    cpu, cpu_stats = _ndt_layers_run("cpu", tm, rayflow)
+    assert stats == cpu_stats and stats["ndt_flagged"] > 0
+    assert card.keys() == card2.keys() == cpu.keys()
+    assert {k[2] for k in card} >= {"traversal", "touch", "packed_normal"}
+    for k in card:
+        assert np.array_equal(card[k].view(np.uint32), card2[k].view(np.uint32)), k
+        a, b = card[k], cpu[k]
+        if a.dtype == np.float32:
+            fin = np.isfinite(b)
+            assert np.array_equal(fin, np.isfinite(a)), k
+            np.testing.assert_allclose(a[fin], b[fin], atol=1e-5, rtol=1e-5)
+        elif k[2] in ("coord", "packed_normal"):
+            written = (a != 0) | (b != 0)
+            assert (a[written] == b[written]).mean() >= 0.999, k
+        else:
+            assert np.array_equal(a, b), k
+
+
+def test_queries_on_card_match_cpu(cuda):
+    """RaysQuery, LineKeysQuery and ClearanceProcess on the card against the
+    CPU on one map: states, voxels, keys and clearance bit for bit, ranges
+    and volumes within rtol 1e-5."""
+    from ohm_tpu_torch.core.layout import CLEARANCE_LAYER
+    from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
+    from ohm_tpu_torch.query import ClearanceProcess, LineKeysQuery, RaysQuery
+
+    rng = np.random.default_rng(21)
+    m = OccupancyMap(resolution=0.25, flags=MapFlag.NONE)
+    RayMapperOccupancy(m).integrate_rays(_box_rays(2048, rng, half=(4.0, 4.0, 2.0)))
+    rays = np.empty((1024, 3))
+    rays[0::2] = rng.uniform(-3.0, 3.0, (512, 3))
+    rays[1::2] = rays[0::2] + rng.normal(0.0, 6.0, (512, 3))
+    out = []
+    for device in (cuda, "cpu"):
+        q, k = RaysQuery(m, device=device), LineKeysQuery(m, device=device)
+        for query in (q, k):
+            query.set_rays(rays)
+            query.execute()
+        ClearanceProcess(m, search_radius=1.0, device=device).update(force=True)
+        ci = m.layer_index(CLEARANCE_LAYER)
+        out.append((q, k, {key: c.layers[ci][CLEARANCE_LAYER].copy()
+                           for key, c in m.chunks.items()}))
+    (q1, k1, c1), (q2, k2, c2) = out
+    assert np.array_equal(q1.terminal_states, q2.terminal_states)
+    assert np.array_equal(q1.intersected_voxels, q2.intersected_voxels)
+    np.testing.assert_allclose(q1.ranges, q2.ranges, rtol=1e-5)
+    np.testing.assert_allclose(q1.unobserved_volumes, q2.unobserved_volumes, rtol=1e-5)
+    assert all(np.array_equal(a, b) for a, b in zip(k1.result_keys, k2.result_keys))
+    assert c1.keys() == c2.keys() and all(
+        np.array_equal(c1[key].view(np.uint32), c2[key].view(np.uint32)) for key in c1)
+    assert len(set(q1.terminal_states.tolist())) >= 2
 
 
 def _special_planes(rng, n, device):

@@ -1,6 +1,7 @@
 """The port's own host layer against the JAX package's, which it copies:
 
-  source      every copied module (core, oracle) and batch_prep.cpp equals its
+  source      every copied module (core, oracle, query, mapping.mapper) and
+              batch_prep.cpp equals its
               original once the import paths are rewritten; the one listed
               difference is core/filters.py, which ORs np.uint32 flags (numpy
               2.1 and later refuse the original's in-place OR of an IntFlag
@@ -40,6 +41,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = [("core", m) for m in ("rayflags", "probability", "keys", "layout", "subvoxel",
                                 "filters", "map", "raypattern")]
 COPIES += [("oracle", m) for m in ("linewalk", "occupancy", "ndt", "tsdf")]
+COPIES += [("query", m) for m in ("base", "nearest", "line_query")]
+COPIES += [("mapping", "mapper")]
+COPIES += [("core", m) for m in ("compare", "copyutil", "voxel", "compression", "density")]
 _IMPORT = re.compile(r"^(\s*)(from|import) ohm_tpu\.", re.MULTILINE)
 #: The numpy 2 fix: flags OR'ed as np.uint32.
 _FILTER_OR = re.compile(r"\|= (RayFilterFlag\.\w+)")

@@ -1,7 +1,7 @@
 """The PyTorch port's boundaries: it imports and integrates without JAX and
 without any module of the JAX package (on the rayflow and the segmented
-wire), its default device is CUDA and never quietly the CPU, and what it has
-not ported yet raises."""
+wire), its default device is CUDA and never quietly the CPU, and its
+mappers take any map layout, as the reference's do."""
 
 import ctypes
 import os
@@ -58,6 +58,14 @@ for i in range(2):
     layers.integrate_rays_async(rays, timestamps=10.0 + i + np.arange(64) * 1e-3)
 layers.sync_voxels()
 assert layers.stats["batches"] == 2 and len(m.chunks) > 0
+m = OccupancyMap(resolution=0.1, flags=MapFlag.TRAVERSAL | MapFlag.TOUCH_TIME
+                 | MapFlag.INCIDENT_NORMAL)
+ndt_layers = ohm_tpu_torch.TorchNdtMap(m, NdtParams(ndt_tm=True), capacity=64, validate=True,
+                                       device="cpu")
+ndt_layers.integrate_rays(rays, intensities=rng.uniform(0, 1, 64),
+                          timestamps=10.0 + np.arange(64) * 1e-3)
+ndt_layers.sync_voxels()
+assert ndt_layers.stats["batches"] == 1 and len(m.chunks) > 0
 from ohm_tpu_torch.core.raypattern import ClearingPattern, RayPatternConical
 m = OccupancyMap(resolution=0.1, flags=MapFlag.TRAVERSAL)
 seg = ohm_tpu_torch.TorchRayMapper(m, capacity=9000, validate=True, device="cpu")
@@ -83,6 +91,40 @@ print(sorted(n for n in sys.modules if n == "jax" or n.startswith(("jax.", "ohm_
 def test_import_and_cpu_integrate_leave_jax_and_ohm_tpu_out():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+_QUERY_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+from ohm_tpu_torch.core.map import OccupancyMap
+from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
+from ohm_tpu_torch.query import (ClearanceProcess, LineKeysQuery, LineQuery,
+                                 NearestNeighbours, OccupancyType, RaysQuery)
+m = OccupancyMap(resolution=0.25)
+rays = np.array([[0.0, 0.0, 0.0], [2.0, 0.1, 0.0]] * 8)
+RayMapperOccupancy(m).integrate_rays(rays)
+q = RaysQuery(m, device="cpu")
+q.set_rays(np.array([[0.0, 0.0, 0.0], [3.0, 0.1, 0.0]]))
+q.execute()
+assert q.terminal_states[0] == OccupancyType.OCCUPIED
+k = LineKeysQuery(m, device="cpu")
+k.set_rays(rays[:2])
+k.execute()
+assert k.result_counts[0] > 0
+assert ClearanceProcess(m, search_radius=0.5, device="cpu").update(force=True) > 0
+assert NearestNeighbours(m, near_point=(2.0, 0.0, 0.0), search_radius=0.6).execute()
+print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu."))
+             or n in ("ohm_tpu", "triton")))
+"""
+
+
+def test_queries_import_and_run_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _QUERY_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
@@ -124,19 +166,42 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         resolve_device("meta")
 
 
+def _integrates_and_keeps(mapper, m, layer: str) -> None:
+    """Two batches through ``mapper``; ``layer``, filled between them, keeps
+    its values, as the reference's mappers leave a layer they do not know."""
+    rays = np.zeros((64, 3))
+    rays[1::2] = np.random.default_rng(5).uniform(-2, 2, (32, 3))
+    mapper.integrate_rays(rays)
+    mapper.sync_voxels()
+    li = m.layer_index(layer)
+    kept = {}
+    for key, chunk in m.chunks.items():
+        arr = chunk.layers[li]
+        for name in arr.dtype.names:
+            arr[name] = np.arange(arr[name].size).reshape(arr[name].shape) % 97 + 1
+            kept[(key, name)] = np.array(arr[name])
+    mapper.integrate_rays(rays)
+    mapper.sync_voxels()
+    assert kept and mapper.stats["batches"] == 2
+    for (key, name), want in kept.items():
+        assert np.array_equal(m.chunks[key].layers[li][name], want), (key, name)
+
+
 def test_what_is_not_ported_raises():
-    """Map layers the occupancy mapper does not update raise; what the
-    segmented wire took over does not: STOP_ON_FIRST_OCCUPIED, an arena over
-    8191 regions and a batch outside the rayflow envelope each integrate
-    there, with the segments counted."""
+    """A map layer the occupancy mapper does not update stays as the host
+    map holds it, as the reference leaves it; what the segmented wire took
+    over raises nothing either: STOP_ON_FIRST_OCCUPIED, an arena over 8191
+    regions and a batch outside the rayflow envelope each integrate there,
+    with the segments counted."""
     m = OccupancyMap(resolution=0.1, flags=MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL
                      | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL)
     mapper = TorchRayMapper(m, capacity=64, device="cpu")
     assert sorted(mapper.arena.layers) == ["incident", "mean_coord", "mean_count",
                                            "occupancy", "touch_time", "traversal"]
     m.layout.add_intensity()  # an NDT-TM layer the occupancy mapper does not update
-    with pytest.raises(NotImplementedError, match="occupancy"):
-        TorchRayMapper(m, capacity=64, device="cpu")
+    mapper = TorchRayMapper(m, capacity=64, device="cpu")
+    assert "intensity" not in mapper.arena.layers
+    _integrates_and_keeps(mapper, m, "intensity")
     big = TorchRayMapper(OccupancyMap(resolution=0.1), capacity=8192, device="cpu")
     rays = np.array([[0.0, 0.0, 0.0], [1.0, 0.5, 0.2]])
     assert big.integrate_rays(rays) == 1
@@ -162,14 +227,27 @@ def test_what_is_not_ported_under_ndt_raises():
     from ohm_tpu_torch.ops.expand_cuda import expand_keys
     from ohm_tpu_torch.ops.wire import unpack_batch
 
-    for flag in (MapFlag.TRAVERSAL, MapFlag.TOUCH_TIME, MapFlag.INCIDENT_NORMAL):
-        with pytest.raises(NotImplementedError, match="NDT"):
-            TorchNdtMap(OccupancyMap(resolution=0.1, flags=flag), capacity=64, device="cpu")
-    # NDT-OM refuses the NDT-TM layers it does not update.
+    # The side layers integrate under NDT, each in the arena and written.
+    rays = np.zeros((64, 3))
+    rays[1::2] = np.random.default_rng(4).uniform(-2, 2, (32, 3))
+    for flag, layer, arena_layer in ((MapFlag.TRAVERSAL, "traversal", "traversal"),
+                                     (MapFlag.TOUCH_TIME, "touch_time", "touch_time"),
+                                     (MapFlag.INCIDENT_NORMAL, "incident_normal", "incident")):
+        m = OccupancyMap(resolution=0.1, flags=flag)
+        ndt = TorchNdtMap(m, capacity=64, validate=True, device="cpu")
+        assert arena_layer in ndt.arena.layers
+        ndt.integrate_rays(rays, timestamps=10.0 + np.arange(32) * 1e-3)
+        ndt.sync_voxels()
+        li = m.layer_index(layer)
+        member = m.chunks[next(iter(m.chunks))].layers[li].dtype.names[0]
+        assert sum(int(np.count_nonzero(c.layers[li][member])) for c in m.chunks.values()) > 0
+    # NDT-OM leaves the NDT-TM layer it does not update as the host map
+    # holds it.
     m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
     m.layout.add_intensity()
-    with pytest.raises(NotImplementedError, match="intensity"):
-        TorchNdtMap(m, NdtParams(), capacity=64, device="cpu")
+    ndt = TorchNdtMap(m, NdtParams(), capacity=64, device="cpu")
+    assert "intensity" not in ndt.arena.layers
+    _integrates_and_keeps(ndt, m, "intensity")
     mapper = TorchNdtMap(OccupancyMap(resolution=0.1, flags=MapFlag.NONE), capacity=64,
                          device="cpu")
     assert mapper.arena.occupancy_encoding == "inf"

@@ -1,0 +1,474 @@
+"""tests/test_queries.py's 17 tests on the port's query modules and host
+copies, with TorchRayMapper on the CPU (each query's device part runs its
+PyTorch ops there: device="cpu"), and a differential on one map: the JAX
+package's queries against the port's.  Terminal states, terminal voxels,
+line keys, nearest results and the clearance layer are bit-identical;
+ranges and unobserved volumes agree within rtol 1e-5 (XLA's CPU backend
+contracts the jitted walk's products and sums into FMAs; the port rounds
+each op)."""
+
+import functools
+
+import numpy as np
+import pytest
+
+from ohm_tpu_torch.core.map import OccupancyMap, MapFlag
+from ohm_tpu_torch.core.layout import CLEARANCE_LAYER
+from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
+from ohm_tpu_torch.query import LineKeysQuery, NearestNeighbours, OccupancyType
+from ohm_tpu_torch.query import ClearanceProcess as _ClearanceProcess
+from ohm_tpu_torch.query import LineQuery as _LineQuery
+from ohm_tpu_torch.query import RaysQuery as _RaysQuery
+from ohm_tpu_torch.query.clearance import UNKNOWN_AS_OCCUPIED
+from ohm_tpu_torch.core.compare import compare_maps
+from ohm_tpu_torch.core.copyutil import copy_map
+from ohm_tpu_torch.mapping.mapper import Mapper, ClearanceMappingProcess
+import ohm_tpu_torch.query.line_query as port_line_query
+
+# The device parts on the CPU; LineQuery builds its ClearanceProcess there too.
+RaysQuery = functools.partial(_RaysQuery, device="cpu")
+ClearanceProcess = functools.partial(_ClearanceProcess, device="cpu")
+LineQuery = _LineQuery
+
+
+@pytest.fixture(autouse=True)
+def _line_query_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(port_line_query, "ClearanceProcess", ClearanceProcess)
+
+
+@pytest.fixture
+def wall_map():
+    """Map with an occupied wall at x = 2 and free corridor before it."""
+    m = OccupancyMap(resolution=0.25, flags=MapFlag.NONE)
+    mapper = RayMapperOccupancy(m)
+    rng = np.random.default_rng(21)
+    n = 120
+    rays = np.empty((2 * n, 3))
+    rays[0::2] = (0.0, 0.0, 0.0)
+    rays[1::2] = np.column_stack([np.full(n, 2.0), rng.uniform(-1, 1, n), rng.uniform(-1, 1, n)])
+    for _ in range(3):
+        mapper.integrate_rays(rays)
+    return m
+
+
+def test_rays_query_hits_wall(wall_map):
+    q = RaysQuery(wall_map, volume_coefficient=1.0)
+    q.set_rays(np.array([
+        [0.0, 0.0, 0.0], [3.0, 0.0, 0.0],   # through the wall
+        [0.0, 0.0, 0.0], [1.0, 0.0, 0.0],   # stops in free space
+        [0.0, 5.0, 0.0], [1.0, 5.0, 0.0],   # entirely unobserved
+    ]))
+    q.execute()
+    assert q.terminal_states[0] == OccupancyType.OCCUPIED
+    assert 1.7 < q.ranges[0] < 2.1, f"range to wall: {q.ranges[0]}"
+    assert q.terminal_states[1] == OccupancyType.FREE
+    assert q.ranges[1] == pytest.approx(1.0, abs=0.3)
+    assert q.terminal_states[2] == OccupancyType.UNOBSERVED
+    assert q.unobserved_volumes[2] > 0
+    # Observed corridor contributes no unobserved volume.
+    assert q.unobserved_volumes[1] == pytest.approx(0.0, abs=1e-6)
+
+
+def test_rays_query_unobserved_volume_global_ranges(wall_map):
+    # The unobserved volume cubes ray-global ranges (ohm/RaysQuery.cpp:147-149):
+    # a 10 m ray through wholly unobserved space yields ~10^3, even though the
+    # ray is split into several device segments.
+    q = RaysQuery(wall_map, volume_coefficient=1.0)
+    q.set_rays(np.array([[0.0, 50.0, 0.0], [10.0, 50.0, 0.0]]))
+    q.execute()
+    assert q.terminal_states[0] == OccupancyType.UNOBSERVED
+    assert q.unobserved_volumes[0] == pytest.approx(1000.0, rel=0.05)
+
+
+def test_rays_query_long_ray_segments(wall_map):
+    # A ray much longer than a region edge exercises segment stitching.
+    q = RaysQuery(wall_map)
+    q.set_rays(np.array([[-20.0, 0.0, 0.0], [30.0, 0.0, 0.0]]))
+    q.execute()
+    assert q.terminal_states[0] == OccupancyType.OCCUPIED
+    assert q.ranges[0] == pytest.approx(22.0, abs=0.3)
+
+
+def test_line_keys_query(wall_map):
+    q = LineKeysQuery(wall_map, device="cpu")
+    q.set_rays(np.array([[0.0, 0.0, 0.0], [2.5, 0.0, 0.0],
+                         [0.0, 0.0, 0.0], [0.0, -1.0, 0.0]]))
+    q.execute()
+    assert q.result_counts[0] == 11  # 2.5m / 0.25m + end voxel
+    assert q.result_counts[1] == 5
+    keys = q.result_keys[0]
+    np.testing.assert_array_equal(np.diff(keys[:, 0]), 1)
+
+
+def test_nearest_neighbours(wall_map):
+    q = NearestNeighbours(wall_map, near_point=(2.0, 0.0, 0.0), search_radius=0.6)
+    q.execute()
+    assert q.number_of_results() > 0
+    assert q.ranges.max() <= 0.6
+    # All results should be on the wall plane x ~ 2.
+    from ohm_tpu_torch.core import keys as keymath
+
+    region, local = keymath.abs_to_key(q.intersected_voxels, wall_map.region_voxel_dims)
+    centres = wall_map.voxel_centre_global(region, local)
+    assert np.all(np.abs(centres[:, 0] - 2.0) < 0.6)
+
+
+def test_clearance_process(wall_map):
+    proc = ClearanceProcess(wall_map, search_radius=1.0)
+    n = proc.update(force=True)
+    assert n > 0
+    clear_idx = wall_map.layer_index(CLEARANCE_LAYER)
+    # Voxel adjacent to the wall: clearance ~ one voxel.
+    region, local = wall_map.voxel_key([1.7, 0.0, 0.0])
+    chunk = wall_map.region(region)
+    c = chunk.layers[clear_idx][CLEARANCE_LAYER][int(wall_map.voxel_index(local))]
+    assert 0.0 < c <= 0.5, f"clearance near wall: {c}"
+    # Far free voxel: clearance beyond radius -> -1.
+    region, local = wall_map.voxel_key([0.3, 0.0, 0.0])
+    chunk = wall_map.region(region)
+    c = chunk.layers[clear_idx][CLEARANCE_LAYER][int(wall_map.voxel_index(local))]
+    assert c == -1.0 or c > 1.0
+
+
+def test_clearance_matches_brute_force(wall_map):
+    proc = ClearanceProcess(wall_map, search_radius=1.0)
+    proc.update(force=True)
+    clear_idx = wall_map.layer_index(CLEARANCE_LAYER)
+    occ_idx = wall_map.layer_index("occupancy")
+    from ohm_tpu_torch.core import keys as keymath
+
+    dims = wall_map.region_voxel_dims
+    # Gather all occupied voxel centres.
+    occ_centres = []
+    for key, chunk in wall_map.chunks.items():
+        occ = chunk.layers[occ_idx]["occupancy"]
+        sel = np.flatnonzero(np.isfinite(occ) & (occ >= wall_map.occupancy_threshold_value))
+        if sel.size:
+            local = keymath.local_key_from_index(sel, dims)
+            region = np.broadcast_to(np.asarray(key, np.int32), (len(sel), 3))
+            occ_centres.append(wall_map.voxel_centre_global(region, local))
+    occ_centres = np.concatenate(occ_centres)
+
+    rng = np.random.default_rng(3)
+    for _ in range(30):
+        p = np.array([rng.uniform(0, 2.4), rng.uniform(-0.8, 0.8), rng.uniform(-0.8, 0.8)])
+        region, local = wall_map.voxel_key(p)
+        chunk = wall_map.region(region)
+        if chunk is None:
+            continue
+        centre = wall_map.voxel_centre_global(region, local)
+        expected = np.linalg.norm(occ_centres - centre, axis=1).min()
+        got = chunk.layers[clear_idx][CLEARANCE_LAYER][int(wall_map.voxel_index(local))]
+        if expected <= 1.0:
+            assert got == pytest.approx(expected, abs=1e-4), f"at {p}"
+        else:
+            assert got == -1.0
+
+
+def test_line_query(wall_map):
+    q = LineQuery(wall_map, start_point=(0.0, 0.0, 0.0), end_point=(2.4, 0.0, 0.0), search_radius=1.0)
+    q.execute()
+    assert q.number_of_results() > 0
+    # Clearance shrinks approaching the wall.
+    valid = q.ranges > 0
+    assert valid.any()
+    r = q.ranges[valid]
+    assert r[-1] <= r.max()
+
+
+def test_compare_and_copy(wall_map):
+    clone = wall_map.clone()
+    result = compare_maps(wall_map, clone)
+    assert result.ok, result.messages
+
+    dst = OccupancyMap(resolution=wall_map.resolution, flags=MapFlag.NONE)
+    n = copy_map(dst, wall_map)
+    assert n == len(wall_map.chunks)
+    assert compare_maps(wall_map, dst, tolerance=0).voxels_failed == 0
+
+    # AABB-filtered copy copies fewer regions.
+    dst2 = OccupancyMap(resolution=wall_map.resolution, flags=MapFlag.NONE)
+    n2 = copy_map(dst2, wall_map, extents=((0, -0.5, -0.5), (0.5, 0.5, 0.5)))
+    assert 0 < n2 <= n
+
+    # updated_since filter: nothing new.
+    dst3 = OccupancyMap(resolution=wall_map.resolution, flags=MapFlag.NONE)
+    assert copy_map(dst3, wall_map, updated_since=wall_map.stamp) == 0
+
+
+def test_mapper_scheduler(wall_map):
+    proc = ClearanceProcess(wall_map, search_radius=0.5)
+    mapper = Mapper(wall_map)
+    mapper.add_process(ClearanceMappingProcess(proc))
+    # Run to completion.
+    for _ in range(50):
+        if mapper.update(0.5) == 2:  # COMPLETE
+            break
+    clear_idx = wall_map.layer_index(CLEARANCE_LAYER)
+    region, local = wall_map.voxel_key([1.9, 0.0, 0.0])
+    chunk = wall_map.region(region)
+    assert chunk.layers[clear_idx][CLEARANCE_LAYER][int(wall_map.voxel_index(local))] >= 0.0
+
+
+def test_voxel_accessor_and_aabb(wall_map):
+    from ohm_tpu_torch.core.voxel import Voxel, VoxelBuffer, Aabb, calculate_segment_keys
+
+    occ_idx = wall_map.layer_index("occupancy")
+    v = Voxel(wall_map, occ_idx)
+    v.set_point([2.0, 0.0, 0.0])
+    assert v.is_valid
+    assert v.read()["occupancy"] >= wall_map.occupancy_threshold_value
+    # Write through the accessor.
+    v2 = Voxel(wall_map, occ_idx, allow_create=True)
+    v2.set_point([10.0, 10.0, 10.0])
+    v2.write(np.float32(1.5))
+    assert wall_map.voxel_value(point=[10.0, 10.0, 10.0]) == np.float32(1.5)
+
+    buf = VoxelBuffer(wall_map.region(v._chunk.region_key), occ_idx)
+    assert buf.voxel_count == int(np.prod(wall_map.region_voxel_dims))
+
+    box = Aabb((0, 0, 0), (1, 1, 1))
+    assert box.contains((0.5, 0.5, 0.5)) and not box.contains((2, 0, 0))
+    assert box.overlaps(Aabb((0.5, 0.5, 0.5), (2, 2, 2)))
+
+    keys = calculate_segment_keys(wall_map, (0, 0, 0), (1.0, 0, 0))
+    assert len(keys) == 5  # 4 traversed + end voxel at 0.25 resolution
+
+
+def test_compression_store(wall_map):
+    from ohm_tpu_torch.core.compression import CompressedChunkStore
+
+    store = CompressedChunkStore(wall_map, high_tide_bytes=1, low_tide_bytes=0)
+    before = wall_map.voxel_value(point=[2.0, 0.0, 0.0])
+    freed = store.run_once()
+    assert freed > 0
+    assert store.compressed_count() > 0
+    # Transparent decompress on access restores identical data.
+    region, _ = wall_map.voxel_key([2.0, 0.0, 0.0])
+    chunk = store.access(region)
+    assert chunk.layers, "chunk must be decompressed on access"
+    assert wall_map.voxel_value(point=[2.0, 0.0, 0.0]) == before
+
+
+def test_arena_cache_stats(wall_map):
+    from ohm_tpu_torch import TorchRayMapper
+    from ohm_tpu_torch.core.map import OccupancyMap, MapFlag
+
+    m = OccupancyMap(resolution=0.25, flags=MapFlag.NONE)
+    mapper = TorchRayMapper(m, capacity=4, validate=True, device="cpu")
+    rng = np.random.default_rng(14)
+    for i in range(6):
+        centre = np.array([i * 10.0, 0.0, 0.0])
+        rays = np.empty((20, 3))
+        rays[0::2] = centre
+        rays[1::2] = centre + rng.uniform(-1, 1, (10, 3))
+        mapper.integrate_rays(rays)
+    stats = mapper.arena.stats
+    assert stats["misses"] >= 6
+    assert stats["evictions"] > 0  # capacity 4 < 6 spread-out region groups
+
+
+def test_density_accessor(wall_map):
+    # Density requires mean + traversal layers (ohm/Density.h:32-55).
+    from ohm_tpu_torch.core.density import voxel_density, voxel_density_batch, region_density
+    from ohm_tpu_torch.core.layout import MEAN_LAYER, TRAVERSAL_LAYER
+
+    assert voxel_density(wall_map, point=(2.0, 0.0, 0.0)) == 0.0  # layers missing
+
+    m = OccupancyMap(resolution=0.25, flags=MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL)
+    mapper = RayMapperOccupancy(m)
+    rays = np.array([[0.0, 0.0, 0.0], [2.1, 0.0, 0.0]] * 3)
+    mapper.integrate_rays(rays)
+    d_hit = voxel_density(m, point=(2.1, 0.0, 0.0))
+    # 3 samples, traversal = 3 * (length - enter of end voxel) = 3 * 0.1.
+    assert d_hit == pytest.approx(3 / 0.3, rel=1e-3)
+    assert voxel_density(m, point=(1.0, 0.0, 0.0)) == 0.0  # free: no samples
+    # Non-zero count with zero traversal -> +inf (sample on a voxel boundary).
+    m2 = OccupancyMap(resolution=0.25, flags=MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL)
+    RayMapperOccupancy(m2).integrate_rays(np.array([[0.0, 0.0, 0.0], [2.0, 0.0, 0.0]]))
+    assert voxel_density(m2, point=(2.0, 0.0, 0.0)) == np.inf
+    batch = voxel_density_batch(m, [(2.1, 0.0, 0.0), (1.0, 0.0, 0.0), (9.0, 9.0, 9.0)])
+    assert batch[0] == pytest.approx(d_hit)
+    assert batch[1] == 0.0 and batch[2] == 0.0
+    region, _ = m.voxel_key(np.array([2.0, 0.0, 0.0]))
+    grid = region_density(m, tuple(np.asarray(region).tolist()))
+    assert grid is not None and grid.max() == pytest.approx(d_hit)
+
+
+def test_query_execute_async(wall_map):
+    # Reference: ohm/Query.h:93-154 executeAsync/wait/reset.
+    q = RaysQuery(wall_map, volume_coefficient=1.0)
+    q.set_rays(np.array([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0]]))
+    assert q.execute_async()
+    assert not q.execute_async() or not q.is_pending  # busy while in flight
+    assert q.wait(timeout=60.0)
+    assert q.terminal_states[0] == OccupancyType.OCCUPIED
+    # reset(hard) clears results.
+    q.reset(hard=True)
+    assert q.ranges is None
+    # Async works on the other query types too.
+    q2 = NearestNeighbours(wall_map, near_point=(2.0, 0.0, 0.0), search_radius=0.6)
+    assert q2.execute_async() and q2.wait(60.0)
+    assert q2.number_of_results() > 0
+
+
+def test_clearance_tiles_large_extent():
+    # VERDICT round-1 weak #6: large extents must be processed in halo tiles
+    # under a fixed memory cap, not raise MemoryError.  Two occupied walls
+    # far apart force multiple tiles; values must match the untiled result.
+    res = 0.5
+    m = OccupancyMap(resolution=res, flags=MapFlag.NONE)
+    mapper = RayMapperOccupancy(m)
+    for x0 in (0.0, 200.0):  # two clusters ~400 regions apart in x
+        rays = np.array([[x0, 0.0, 1.0], [x0, 0.0, 0.0],
+                         [x0 + 1.0, 0.0, 1.0], [x0 + 1.0, 0.0, 0.0]])
+        mapper.integrate_rays(rays)
+
+    proc = ClearanceProcess(m, search_radius=1.5)
+    proc.max_box_voxels = 96 ** 3  # force tiling even for this small set
+    n = proc.update(force=True)
+    assert n == len(m.chunks)
+    clear_idx = m.layer_index(CLEARANCE_LAYER)
+    for x0 in (0.0, 200.0):
+        region, local = m.voxel_key([x0, 0.0, 0.5])
+        chunk = m.region(region)
+        c = chunk.layers[clear_idx][CLEARANCE_LAYER][int(m.voxel_index(local))]
+        assert 0 < c <= 1.0, (x0, c)
+
+
+def test_clearance_incremental_dirty_regions_only(wall_map):
+    """Incremental scheduling (VERDICT r3 item 8, reference
+    ohmgpu/ClearanceProcess.cpp dirty-region loop): after a full pass, a
+    clean map re-EDTs nothing; touching one region re-EDTs only the dirty
+    set, and the values match a from-scratch recompute exactly."""
+    # A second, far-away cluster so the map spans multiple regions.
+    far = np.array([[10.0, 10.0, 0.0], [11.0, 10.5, 0.3]] * 4)
+    RayMapperOccupancy(wall_map).integrate_rays(far)
+    assert len(wall_map.chunks) > 1
+
+    proc = ClearanceProcess(wall_map, search_radius=1.0)
+    assert proc.update() > 0          # first pass: everything is dirty
+    assert proc.update() == 0         # clean map: nothing to do
+
+    # New obstacle in one region -> only that region is dirty.
+    mapper = RayMapperOccupancy(wall_map)
+    rays = np.array([[0.5, 0.0, 0.0], [1.0, 0.1, 0.1]] * 6)
+    mapper.integrate_rays(rays)
+    n = proc.update()
+    assert 0 < n < len(wall_map.chunks)
+
+    # Ground truth: force-recompute everything on a fresh process.
+    vals_inc = {k: c.layers[wall_map.layer_index(CLEARANCE_LAYER)][CLEARANCE_LAYER].copy()
+                for k, c in wall_map.chunks.items()}
+    ClearanceProcess(wall_map, search_radius=1.0).update(force=True)
+    dirty_keys = set()
+    for k, c in wall_map.chunks.items():
+        full = c.layers[wall_map.layer_index(CLEARANCE_LAYER)][CLEARANCE_LAYER]
+        if not np.array_equal(vals_inc[k], full):
+            dirty_keys.add(k)
+    # Any region whose full recompute differs from the incremental result
+    # must have been within the halo of the changed region — the reference
+    # recomputes dirty regions only, and so do we; the DIRTY region itself
+    # must match exactly.
+    region, _ = wall_map.voxel_key([0.9, 0.1, 0.1])
+    assert tuple(region) not in dirty_keys
+
+
+def _wall_map_in(package):
+    """The wall_map fixture's map, built by ``package``'s own oracle (the
+    oracle copies give the same chunk bytes, tests/test_torch_host.py),
+    with a second cluster far off."""
+    import importlib
+
+    core = importlib.import_module(f"{package}.core.map")
+    oracle = importlib.import_module(f"{package}.oracle.occupancy")
+    m = core.OccupancyMap(resolution=0.25, flags=core.MapFlag.NONE)
+    mapper = oracle.RayMapperOccupancy(m)
+    rng = np.random.default_rng(21)
+    n = 120
+    rays = np.empty((2 * n, 3))
+    rays[0::2] = (0.0, 0.0, 0.0)
+    rays[1::2] = np.column_stack([np.full(n, 2.0), rng.uniform(-1, 1, n), rng.uniform(-1, 1, n)])
+    for _ in range(3):
+        mapper.integrate_rays(rays)
+    mapper.integrate_rays(np.array([[10.0, 10.0, 0.0], [11.0, 10.5, 0.3]] * 4))
+    return m
+
+
+def _query_rays():
+    """Rays through the wall, stopping short of it, in unobserved space, and
+    long ones (several segments) from scattered origins."""
+    rng = np.random.default_rng(8)
+    n = 300
+    rays = np.empty((2 * n, 3))
+    rays[0::2] = rng.uniform(-3.0, 3.0, (n, 3))
+    rays[1::2] = rays[0::2] + rng.normal(0.0, 1.0, (n, 3)) * rng.uniform(0.1, 12.0, (n, 1))
+    rays[0:6] = [[0.0, 0.0, 0.0], [3.0, 0.0, 0.0], [0.0, 0.0, 0.0], [1.0, 0.0, 0.0],
+                 [-20.0, 0.0, 0.0], [30.0, 0.0, 0.0]]
+    return rays
+
+
+def test_queries_match_the_jax_package():
+    """One map, every query in both packages: terminal states, voxels, line
+    keys, nearest results and the clearance layer (plain and with unknown
+    voxels as obstacles, tiled) bit-identical; ranges and volumes within
+    rtol 1e-5."""
+    import ohm_tpu.query as ref_query
+    from ohm_tpu.core.layout import CLEARANCE_LAYER as REF_CLEARANCE
+
+    ref_map, port_map = _wall_map_in("ohm_tpu"), _wall_map_in("ohm_tpu_torch")
+    rays = _query_rays()
+    ref_q, port_q = ref_query.RaysQuery(ref_map, volume_coefficient=0.5), RaysQuery(
+        port_map, volume_coefficient=0.5)
+    for q in (ref_q, port_q):
+        q.set_rays(rays)
+        q.execute()
+    assert np.array_equal(ref_q.terminal_states, port_q.terminal_states)
+    assert np.array_equal(ref_q.intersected_voxels, port_q.intersected_voxels)
+    np.testing.assert_allclose(port_q.ranges, ref_q.ranges, rtol=1e-5)
+    np.testing.assert_allclose(port_q.unobserved_volumes, ref_q.unobserved_volumes, rtol=1e-5)
+    states = set(port_q.terminal_states.tolist())
+    assert {int(OccupancyType.OCCUPIED), int(OccupancyType.FREE),
+            int(OccupancyType.UNOBSERVED)} <= states
+    assert (port_q.unobserved_volumes > 0).sum() > 50
+
+    ref_k, port_k = ref_query.LineKeysQuery(ref_map), LineKeysQuery(port_map, device="cpu")
+    for q in (ref_k, port_k):
+        q.set_rays(rays)
+        q.execute()
+    assert np.array_equal(ref_k.result_counts, port_k.result_counts)
+    for a, b in zip(ref_k.result_keys, port_k.result_keys):
+        assert np.array_equal(a, b)
+    assert port_k.result_counts.sum() > 5000
+
+    ref_n = ref_query.NearestNeighbours(ref_map, near_point=(2.0, 0.1, 0.0), search_radius=0.8)
+    port_n = NearestNeighbours(port_map, near_point=(2.0, 0.1, 0.0), search_radius=0.8)
+    for q in (ref_n, port_n):
+        q.execute()
+    assert port_n.number_of_results() > 0
+    assert np.array_equal(ref_n.ranges, port_n.ranges)
+    assert np.array_equal(ref_n.intersected_voxels, port_n.intersected_voxels)
+
+    for flags, max_box in ((0, None), (UNKNOWN_AS_OCCUPIED, 40 ** 3)):
+        ref_c = ref_query.ClearanceProcess(ref_map, search_radius=1.0, query_flags=flags)
+        port_c = ClearanceProcess(port_map, search_radius=1.0, query_flags=flags)
+        if max_box:
+            ref_c.max_box_voxels = port_c.max_box_voxels = max_box
+        assert ref_c.update(force=True) == port_c.update(force=True) == len(port_map.chunks)
+        ri, pi = ref_map.layer_index(REF_CLEARANCE), port_map.layer_index(CLEARANCE_LAYER)
+        assert ref_map.chunks.keys() == port_map.chunks.keys()
+        for key in ref_map.chunks:
+            a = ref_map.chunks[key].layers[ri][REF_CLEARANCE]
+            b = port_map.chunks[key].layers[pi][CLEARANCE_LAYER]
+            assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), (flags, key)
+        assert sum(int((c.layers[pi][CLEARANCE_LAYER] >= 0).sum())
+                   for c in port_map.chunks.values()) > 1000
+
+    ref_l = ref_query.LineQuery(ref_map, start_point=(0.0, 0.3, 0.0), end_point=(2.4, 0.0, 0.1),
+                                search_radius=1.0)
+    port_l = LineQuery(port_map, start_point=(0.0, 0.3, 0.0), end_point=(2.4, 0.0, 0.1),
+                       search_radius=1.0)
+    for q in (ref_l, port_l):
+        q.execute()
+    assert np.array_equal(ref_l.intersected_voxels, port_l.intersected_voxels)
+    assert np.array_equal(ref_l.ranges.view(np.uint32), port_l.ranges.view(np.uint32))
