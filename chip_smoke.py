@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the ohm_tpu_torch occupancy (with and without its side layers), NDT
 (with and without its side layers) and TSDF paths, on the rayflow and the
-segmented wire, the queries, and the deposit probe once on one NVIDIA GPU.
+segmented wire, the queries, the deposit probe, and ohmpop and the other
+CLIs from a .laz once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
     python3 chip_smoke.py --wrappers-of DIR   # only the wrapper_cost line, of
@@ -12,7 +13,8 @@ exit code is not 0 and no result line is printed:
 
   device       nvidia-smi's name and power limit, torch's device name
   build        nvcc builds ohm_tpu_torch/csrc/*.cu for sm_90a (seconds, ptxas), and
-               g++ the native rayflow host pass (ohm_tpu_torch/native)
+               g++ the LASzip codec (beside nvcc) and the native rayflow host
+               pass (ohm_tpu_torch/native)
   k1_expand    the expand kernel against its plain PyTorch version on wires
                of the box, corner and miss scenes and on edge rays (starts
                on voxel walls, zero lengths, denormal direction components
@@ -166,6 +168,11 @@ exit code is not 0 and no result line is printed:
                card against the port on the CPU: terminal states, voxels,
                line keys and clearance bit for bit, ranges and volumes
                within rtol 1e-5
+  ndt_tm_pipeline_frame_sec
+               scripts/bench_modes.py config 5's row: the NDT-TM frame's
+               integrate seconds (ndt_tm_integrate_rays_per_sec) + its warm
+               clearance (queries) + the layered heightmap (LAYERED_FILL,
+               min clearance 0.5) of its map, each printed
   k5_gather_f32
                the f32 seed-gather kernel against its plain version on a
                sorted stream of ~1.2M ids with sentinel padding over two
@@ -275,6 +282,27 @@ Each phase's seconds follow it on a "phase_seconds" line.
                probe alone beside an empty kernel (the launch floor) and its
                library call, and as a call beside its plain version and its
                library call, in alternated turns
+  apps         ohmpop and the other CLIs, called in this process: 12 x 8192
+               outdoor_rays samples (seed 7, scripts/bench_modes.py config 2)
+               through the port's .laz writer with a static trajectory;
+               laz_read_s (SlamCloudLoader reading and transforming the file);
+               ohmpop --resolution 0.2 --voxel-mean --arena-capacity 1024
+               --batch-size 8192 --save-info twice on the card (rays_per_sec
+               from the harness's stats, K1 and K2 launches counted) and once
+               on the CPU: the same chunks, occupancy bits and mean counts,
+               mean codes identical on >= 99.9% (within one quantum
+               elsewhere), the two card files byte-identical; --mode ndt,
+               ndt-tm and tsdf with --point-limit 16384, card against CPU
+               (NDT: compare_port; TSDF: weights equal, distances within
+               PORT_TOL), each mode's kernels launched; ohminfo --voxel-stats,
+               ohm2ply, ohmheightmap --clearance 0.5, ohmhm2img, ohmcmp (the
+               card's file against the CPU's; the mean code within one
+               quantum a field, every other member exact) and ohmquery
+               rays --device cuda on the card's .ohm, each returning 0; and
+               the layered heightmap (LAYERED_FILL, min clearance 0.5) of
+               config 4's occupancy map (the box scene, 0.1 m, 1024 slots, 4
+               batches of 8192) built on the card and on the CPU: layers
+               bit-identical, layered_heightmap_build_sec and source_voxels
 
 Then one JSON line of the kernels (each with its bound: the bytes it must
 move over 3.35 TB/s or its operations over 67 TFLOP/s (bf16 matrix work
@@ -282,21 +310,24 @@ over 989 TFLOP/s), whichever is longer, and the time of one PyTorch call
 that computes the same function, where there is one), nvidia-smi's line,
 and the result line
 {"ok": true, "device": {...}}.  The script uses the port alone, with its own
-host layer (ohm_tpu_torch.core, .oracle, .native); it fails if JAX or any
-module of ohm_tpu was imported.
+host layer (ohm_tpu_torch.core, .oracle, .native, .io, .heightmap, .app); it
+fails if JAX or any module of ohm_tpu was imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import importlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -306,6 +337,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ohm_tpu_torch import TorchNdtMap, TorchRayMapper, TorchTsdfMap, native
+from ohm_tpu_torch.app import harness as app_harness
+from ohm_tpu_torch.app import ohm2ply, ohmcmp, ohmheightmap, ohmhm2img, ohminfo, ohmpop, ohmquery
 from ohm_tpu_torch.core import subvoxel
 from ohm_tpu_torch.core.layout import (CLEARANCE_LAYER, COVARIANCE_LAYER, HIT_MISS_COUNT_LAYER,
                                        INCIDENT_NORMAL_LAYER, INTENSITY_LAYER, MEAN_LAYER,
@@ -314,6 +347,11 @@ from ohm_tpu_torch.core.layout import (CLEARANCE_LAYER, COVARIANCE_LAYER, HIT_MI
 from ohm_tpu_torch.core.map import MapFlag, OccupancyMap
 from ohm_tpu_torch.core.rayflags import RayFlag
 from ohm_tpu_torch.core.raypattern import ClearingPattern
+from ohm_tpu_torch.heightmap import Heightmap, HeightmapMode
+from ohm_tpu_torch.heightmap.heightmap import HEIGHTMAP_LAYER
+from ohm_tpu_torch.io import load as load_ohm
+from ohm_tpu_torch.io.las import write_laz
+from ohm_tpu_torch.io.slam import SlamCloudLoader
 from ohm_tpu_torch.mapping.batch import prepare_rayflow
 from ohm_tpu_torch.oracle.ndt import NdtParams, RayMapperNdt
 from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
@@ -666,17 +704,25 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
-    seconds, log = _build.build(force=True, verbose=True)
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
-    # The rayflow host pass (g++ -march=native), built on this machine.
+def _timed_build(build) -> tuple[str, float]:
     t0 = time.perf_counter()
-    native_lib = native.build(force=True)
+    return build(force=True), time.perf_counter() - t0
+
+
+def phase_build() -> None:
+    # The LASzip codec (g++) builds beside nvcc; the rayflow host pass
+    # (g++ -march=native) after it, on this machine.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        laz = pool.submit(_timed_build, native.build_laz)
+        seconds, log = _build.build(force=True, verbose=True)
+        laz_lib, laz_seconds = laz.result()
+    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+    native_lib, native_seconds = _timed_build(native.build)
     emit({"phase": "build", "seconds": seconds,
           "sources": [os.path.relpath(p, REPO) for p in _build.sources()],
           "flags": _build.NVCC_FLAGS, "ptxas": ptxas,
-          "native": os.path.relpath(native_lib, REPO),
-          "native_seconds": time.perf_counter() - t0})
+          "native": os.path.relpath(native_lib, REPO), "native_seconds": native_seconds,
+          "laszip": os.path.relpath(laz_lib, REPO), "laszip_seconds": laz_seconds})
 
 
 def _wire_batch(rays, flags=0):
@@ -2037,7 +2083,7 @@ def check_ndt_kernel_calls(kf_call, k3_call) -> dict:
                                       "bit_identical": bool(k3_ok)}}
 
 
-def phase_ndt_tm_frame() -> TorchNdtMap:
+def phase_ndt_tm_frame() -> tuple[TorchNdtMap, float]:
     rng = np.random.default_rng(SEED)
     m = OccupancyMap(resolution=NDT_RESOLUTION, flags=MapFlag.NONE)
     mapper = TorchNdtMap(m, params=NdtParams(ndt_tm=True), capacity=NDT_CAPACITY,
@@ -2092,7 +2138,7 @@ def phase_ndt_tm_frame() -> TorchNdtMap:
           "sync_voxels_s": sync_s, "observed_voxels": observed,
           "max_memory_allocated_bytes": peak, "deposit_and_sweep_ndt": k3_row,
           "stats": {k: stats[k] for k in ("ndt_overflow", "ndt_flagged", "missed_updates")}})
-    return mapper
+    return mapper, seconds
 
 
 NDT_SIDE_MEMBERS = {TRAVERSAL_LAYER: "traversal", TOUCH_TIME_LAYER: "touch",
@@ -2542,6 +2588,18 @@ def tsdf_layers(m) -> dict:
             for k, c in m.chunks.items()}
 
 
+def tsdf_card_vs_cpu(dev: dict, host: dict) -> dict:
+    """Two tsdf_layers of one scene, the card's and the CPU's: the same
+    regions, weights equal, distances within PORT_TOL."""
+    ok, worst = dev.keys() == host.keys() and len(dev) > 0, 0.0
+    for key in dev.keys() & host.keys():
+        (wa, da), (wb, db) = dev[key], host[key]
+        ok = ok and np.array_equal(wa, wb) and np.allclose(
+            da, db, atol=PORT_TOL["atol"], rtol=PORT_TOL["rtol"])
+        worst = max(worst, float(np.abs(da - db).max()))
+    return {"worst_abs_diff": worst, "ok": bool(ok)}
+
+
 def tsdf_sphere_batches():
     """tests/test_tsdf.py's differential scene: 150 rays from the origin to
     a 2 m sphere, in 30-ray batches."""
@@ -2584,22 +2642,17 @@ def phase_tsdf_hardware_differential() -> None:
             worst_oracle = max(worst_oracle, float(np.abs(da[act] - db[act]).max()))
             ok_oracle = ok_oracle and np.allclose(wa[act], wb[act], rtol=1e-5, atol=1e-4)
     ok_oracle = bool(ok_oracle and checked > 0 and worst_oracle <= 5e-3)
-    ok_cpu, worst_cpu = dev.keys() == host.keys(), 0.0
-    for key in dev.keys() & host.keys():
-        (wa, da), (wb, db) = dev[key], host[key]
-        ok_cpu = ok_cpu and np.array_equal(wa, wb) and np.allclose(da, db, **{
-            k: PORT_TOL[k] for k in ("atol", "rtol")})
-        worst_cpu = max(worst_cpu, float(np.abs(da - db).max()))
+    card_vs_cpu = tsdf_card_vs_cpu(dev, host)
     bits = dev.keys() == dev2.keys() and all(
         np.array_equal(a.view(np.uint32), b.view(np.uint32))
         for k in dev for a, b in zip(dev[k], dev2[k]))
     row = {"oracle": {"checked_voxels": checked, "worst_abs_diff": worst_oracle,
                       "ok": ok_oracle},
-           "card_vs_cpu": {"worst_abs_diff": worst_cpu, "ok": bool(ok_cpu)},
+           "card_vs_cpu": card_vs_cpu,
            "card_runs_bit_identical": bool(bits), "stats_equal_cpu": stats == cpu_stats,
            "stats": {k: stats[k] for k in ("batches", "missed_updates", "overflow",
                                            "compaction_dropped", "dropped_updates")}}
-    row["ok"] = bool(ok_oracle and ok_cpu and bits and row["stats_equal_cpu"])
+    row["ok"] = bool(ok_oracle and card_vs_cpu["ok"] and bits and row["stats_equal_cpu"])
     emit({"metric": "tsdf_hardware_differential", **row})
     if not row["ok"]:
         raise AssertionError("TSDF GPU differential failed")
@@ -3052,19 +3105,13 @@ def phase_segmented_hardware_differential() -> dict:
     card2, _ = run_tsdf_port("cuda", rayflow=False)
     cpu, cpu_stats = run_tsdf_port("cpu", rayflow=False)
     dev, dev2, host = tsdf_layers(card), tsdf_layers(card2), tsdf_layers(cpu)
-    ok_cpu, worst = dev.keys() == host.keys() and len(dev) > 0, 0.0
-    for key in dev.keys() & host.keys():
-        (wa, da), (wb, db) = dev[key], host[key]
-        ok_cpu = ok_cpu and np.array_equal(wa, wb) and np.allclose(
-            da, db, atol=PORT_TOL["atol"], rtol=PORT_TOL["rtol"])
-        worst = max(worst, float(np.abs(da - db).max()))
     bits = dev.keys() == dev2.keys() and all(
         np.array_equal(a.view(np.uint32), b.view(np.uint32))
         for k in dev for a, b in zip(dev[k], dev2[k]))
-    row = {"card_vs_cpu": {"worst_abs_diff": worst, "ok": bool(ok_cpu)},
+    row = {"card_vs_cpu": tsdf_card_vs_cpu(dev, host),
            "card_runs_bit_identical": bool(bits), "stats_equal_cpu": stats == cpu_stats,
            "launches": launches, "segments": stats["segments"]}
-    row["ok"] = bool(ok_cpu and bits and row["stats_equal_cpu"]
+    row["ok"] = bool(row["card_vs_cpu"]["ok"] and bits and row["stats_equal_cpu"]
                      and launches["expand_keys"] == 0 and launches["tsdf_visits"] > 0)
     rows["tsdf"] = row
     ok = all(r["ok"] for r in rows.values())
@@ -3859,6 +3906,236 @@ def phase_p() -> dict:
             "largest_run_records": grid["largest_run_records"]}
 
 
+APPS_MODE_POINTS = 16384
+#: ohmcmp's integer epsilon for the packed mean code (the "coord" member):
+#: one quantum in each of its three 10-bit fields; every other member exact.
+#: The card and the CPU may differ by one quantum on a few mean codes
+#: (PORT_TOL), and occupancy_files_agree holds them to that rule.
+MEAN_CODE_EPSILON = 1 + (1 << 10) + (1 << 20)
+HEIGHTMAP_CLEARANCE = 0.5
+HEIGHTMAP_RESOLUTION = 0.1
+HEIGHTMAP_CAPACITY = 1024
+HEIGHTMAP_BATCHES = 4
+#: The kernels each ohmpop mode launches on the card.
+APP_KERNELS = {
+    "occupancy": {"expand_keys": expand_cuda.expand_keys,
+                  "deposit_and_sweep": deposit_cuda.deposit_and_sweep},
+    "ndt": {"expand_keys": expand_cuda.expand_keys,
+            "gather_ndt_flags": gather_cuda.gather_ndt_flags,
+            "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt},
+    "tsdf": {"expand_keys": expand_cuda.expand_keys, "tsdf_visits": tsdf_cuda.tsdf_visits},
+}
+APP_KERNELS["ndt-tm"] = APP_KERNELS["ndt"]
+
+
+def layered_heightmap(m) -> tuple[float, int, dict]:
+    """Build the layered heightmap (LAYERED_FILL, min clearance 0.5) of
+    ``m``; returns its seconds, its voxel count and (region, member) -> bytes
+    of its heightmap layer."""
+    hm = Heightmap(min_clearance=HEIGHTMAP_CLEARANCE)
+    hm.mode = HeightmapMode.LAYERED_FILL
+    t0 = time.perf_counter()
+    n = hm.build_heightmap(m)
+    seconds = time.perf_counter() - t0
+    out = hm.heightmap()
+    li = out.layer_index(HEIGHTMAP_LAYER)
+    layer = {(k, name): np.ascontiguousarray(c.layers[li][name]).tobytes()
+             for k, c in out.chunks.items() for name in c.layers[li].dtype.names}
+    return seconds, n, layer
+
+
+def phase_ndt_tm_pipeline(tm_mapper, integrate_sec: float, queries: dict) -> dict:
+    """scripts/bench_modes.py's config 5 row: the NDT-TM frame's integrate
+    (ndt_tm_integrate_rays_per_sec, synchronous), its warm clearance field
+    (queries) and the layered heightmap of its map, built here."""
+    hm_sec, n, _ = layered_heightmap(tm_mapper.map)
+    if n <= 0:
+        raise AssertionError("the NDT-TM frame's layered heightmap is empty")
+    row = {"metric": "ndt_tm_pipeline_frame_sec",
+           "value": integrate_sec + queries["clearance_sec"] + hm_sec, "unit": "s",
+           "rays": TM_FRAME_RAYS, "integrate_sec": integrate_sec,
+           "clearance_sec": queries["clearance_sec"],
+           "clearance_incremental_sec": queries["clearance_incremental_sec"],
+           "clearance_incremental_regions": queries["clearance_incremental_regions"],
+           "heightmap_sec": hm_sec, "heightmap_voxels": n,
+           "rays_per_sec": TM_FRAME_RAYS / integrate_sec}
+    emit(row)
+    return row
+
+
+@contextlib.contextmanager
+def harness_runs():
+    """Within the block, every MapHarness that runs, in order (ohmpop builds
+    one a call), so its stats can be read after ohmpop returns."""
+    run = app_harness.MapHarness.run
+    runs = []
+
+    def recording(self):
+        runs.append(self)
+        return run(self)
+    app_harness.MapHarness.run = recording
+    try:
+        yield runs
+    finally:
+        app_harness.MapHarness.run = run
+
+
+def write_outdoor_laz(directory: str) -> tuple[str, str]:
+    """scripts/bench_modes.py config 2's .laz round trip: 12 x 8192
+    outdoor_rays samples (seed 7) through the port's LASzip writer, with a
+    timestamp a point and the two-line static trajectory of the sensor."""
+    rng = np.random.default_rng(OUTDOOR_SEED)
+    batches = [outdoor_rays(RAYS_PER_BATCH, rng) for _ in range(OUTDOOR_BATCHES)]
+    pts = np.concatenate([b[1::2] for b in batches])
+    t = 1000.0 + np.arange(len(pts)) * 1e-4
+    laz = os.path.join(directory, "outdoor.laz")
+    write_laz(laz, pts, timestamps=t)
+    traj = os.path.join(directory, "traj.txt")
+    sensor = batches[0][0]
+    with open(traj, "w") as fh:
+        fh.write(f"{t[0]} {sensor[0]} {sensor[1]} {sensor[2]}\n")
+        fh.write(f"{t[-1] + 1} {sensor[0]} {sensor[1]} {sensor[2]}\n")
+    return laz, traj
+
+
+def ohmpop_run(laz, traj, base, device, mode="occupancy", *extra):
+    """ohmpop.main on the .laz; returns its harness's stats and, on the
+    card, the launches of the mode's kernels (every count 0 just before the
+    call)."""
+    counters = APP_KERNELS[mode]
+    zero_counts(counters)
+    with harness_runs() as runs:
+        rc = ohmpop.main([laz, traj, "-o", base, "--resolution", str(OUTDOOR_RESOLUTION),
+                          "--arena-capacity", str(OUTDOOR_CAPACITY),
+                          "--batch-size", str(RAYS_PER_BATCH), "--mode", mode, "-q",
+                          "--device", device, *extra])
+    launches = read_counts(counters)
+    if rc != 0 or len(runs) != 1:
+        raise AssertionError(f"ohmpop --device {device} --mode {mode} returned {rc}")
+    if device == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of ohmpop's {mode} path never launched: {launches}")
+    return runs[0].stats, launches
+
+
+def same_file_bytes(a_path: str, b_path: str) -> bool:
+    with open(a_path, "rb") as f, open(b_path, "rb") as g:
+        return f.read() == g.read()
+
+
+def occupancy_files_agree(a_path: str, b_path: str) -> dict:
+    """Two occupancy + voxel-mean .ohm files, loaded with the port: the same
+    chunks, occupancy and mean counts bit-identical, mean codes identical on
+    >= 99.9% of written voxels and within one quantum elsewhere."""
+    a, b = (layer_members(load_ohm(p)[0]) for p in (a_path, b_path))
+    ok = a.keys() == b.keys() and all(a[m].keys() == b[m].keys() for m in a)
+    for member in ("occupancy", "count"):
+        ok = ok and all(np.array_equal(a[member][k].view(np.uint32), b[member][k].view(np.uint32))
+                        for k in a[member])
+    mean = code_agreement(a["coord"], b["coord"], MEAN_FIELDS)
+    ok = ok and mean["identical"] >= PORT_TOL["mean_code_identical"] and mean["max_quanta"] <= 1
+    observed = sum(int(np.isfinite(v).sum()) for v in a["occupancy"].values())
+    return {"regions": len(a["occupancy"]), "observed_voxels": observed, "mean_codes": mean,
+            "file_bytes_equal": same_file_bytes(a_path, b_path), "ok": bool(ok and observed > 0)}
+
+
+def run_cli(main_fn, argv) -> dict:
+    """One CLI's main in this process, its standard output kept aside."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    lines = out.getvalue().splitlines()
+    return {"rc": rc, "lines": len(lines), "last": lines[-1] if lines else ""}
+
+
+def phase_apps() -> dict:
+    """ohmpop and the other CLIs on a .laz, on the card and on the CPU, and
+    the layered heightmap at scripts/bench_modes.py config 4's size."""
+    row = {}
+    with tempfile.TemporaryDirectory() as d:
+        laz, traj = write_outdoor_laz(d)
+        t0 = time.perf_counter()
+        loader = SlamCloudLoader(laz, traj)
+        n_points = 0
+        while (batch := loader.next_batch(RAYS_PER_BATCH)) is not None:
+            n_points += len(batch[0]) // 2
+        row["laz_read_s"] = time.perf_counter() - t0
+        row["points"] = n_points
+        row["laz_bytes"] = os.path.getsize(laz)
+
+        # 1. The .laz round trip: twice on the card, once on the CPU.
+        paths, stats, launches = {}, {}, {}
+        for run in ("cuda", "cuda_again", "cpu"):
+            paths[run] = os.path.join(d, run)
+            stats[run], launches[run] = ohmpop_run(laz, traj, paths[run], run.split("_")[0],
+                                                   "occupancy", "--voxel-mean", "--save-info")
+        row["ohmpop"] = {
+            "rays_per_sec": stats["cuda"]["rays_per_sec"],
+            "rays_per_sec_again": stats["cuda_again"]["rays_per_sec"],
+            "cpu_rays_per_sec": stats["cpu"]["rays_per_sec"],
+            "rays": stats["cuda"]["rays"], "regions": stats["cuda"]["regions"],
+            "launches": launches["cuda"],
+            "card_vs_cpu": occupancy_files_agree(paths["cuda"] + ".ohm", paths["cpu"] + ".ohm"),
+            "card_runs_file_bytes_equal": same_file_bytes(paths["cuda"] + ".ohm",
+                                                          paths["cuda_again"] + ".ohm")}
+        ok = (row["ohmpop"]["card_vs_cpu"]["ok"] and row["ohmpop"]["card_runs_file_bytes_equal"]
+              and stats["cuda"]["rays"] == n_points)
+
+        # 2. The other mapper modes, not timed.
+        row["modes"] = {}
+        for mode in ("ndt", "ndt-tm", "tsdf"):
+            base = {dev: os.path.join(d, f"{mode}-{dev}") for dev in ("cuda", "cpu")}
+            _, mode_launches = ohmpop_run(laz, traj, base["cuda"], "cuda", mode, "--point-limit",
+                                          str(APPS_MODE_POINTS), "--no-cloud")
+            ohmpop_run(laz, traj, base["cpu"], "cpu", mode, "--point-limit",
+                       str(APPS_MODE_POINTS), "--no-cloud")
+            maps = [load_ohm(base[dev] + ".ohm")[0] for dev in ("cuda", "cpu")]
+            agree = (tsdf_card_vs_cpu(*map(tsdf_layers, maps)) if mode == "tsdf"
+                     else compare_port(*maps))
+            row["modes"][mode] = {"card_vs_cpu": agree, "launches": mode_launches}
+            ok = ok and agree["ok"]
+
+        # 3. The CLIs on the card's .ohm.
+        card_ohm, hm_ohm = paths["cuda"] + ".ohm", os.path.join(d, "hm.ohm")
+        row["clis"] = {
+            "ohminfo": run_cli(ohminfo.main, [card_ohm, "--voxel-stats"]),
+            "ohm2ply": run_cli(ohm2ply.main, [card_ohm, os.path.join(d, "occ.ply")]),
+            "ohmheightmap": run_cli(ohmheightmap.main, [card_ohm, hm_ohm, "--clearance",
+                                                        str(HEIGHTMAP_CLEARANCE)]),
+            "ohmhm2img": run_cli(ohmhm2img.main, [hm_ohm, os.path.join(d, "hm.png")]),
+            "ohmcmp": run_cli(ohmcmp.main, [card_ohm, paths["cpu"] + ".ohm", "--member-tolerance",
+                                            f"coord={MEAN_CODE_EPSILON}"]),
+            "ohmquery": run_cli(ohmquery.main, [card_ohm, "rays", "--device", "cuda",
+                                                "--ray", "0", "0", "1.5", "30", "0", "0",
+                                                "--ray", "0", "0", "1.5", "0", "30", "-1"]),
+        }
+        ok = ok and all(c["rc"] == 0 for c in row["clis"].values())
+
+    # 4. The layered heightmap on config 4's occupancy map, built on the
+    # card and on the CPU.
+    rng = np.random.default_rng(SEED)
+    batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(HEIGHTMAP_BATCHES)]
+    built = {}
+    for device in ("cuda", "cpu"):
+        m = OccupancyMap(resolution=HEIGHTMAP_RESOLUTION, flags=MapFlag.NONE)
+        mapper = TorchRayMapper(m, capacity=HEIGHTMAP_CAPACITY, device=device)
+        for rays in batches:
+            mapper.integrate_rays(rays)
+        mapper.sync_voxels()
+        built[device] = (m, *layered_heightmap(m))
+    m, seconds, n, layer = built["cuda"]
+    source = sum(int(np.isfinite(v).sum()) for v in _host_occupancy(m).values())
+    same = layer == built["cpu"][3]
+    row["layered_heightmap"] = {"layered_heightmap_build_sec": seconds,
+                                "cpu_map_build_sec": built["cpu"][1], "heightmap_voxels": n,
+                                "source_voxels": source, "card_vs_cpu_bit_identical": same}
+    ok = ok and same and n > 0
+    row["ok"] = bool(ok)
+    emit({"metric": "apps", **row})
+    if not ok:
+        raise AssertionError("the apps phase failed")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wrappers-of", metavar="DIR",
@@ -3900,10 +4177,11 @@ def main(argv=None) -> int:
     k4_flags = timed("k4_ndt_flags", phase_k4_flags)
     timed("ndt_hardware_differential", phase_ndt_hardware_differential)
     ndt = timed("ndt_om_rays_per_sec", phase_ndt_om_bench)
-    tm_mapper = timed("ndt_tm_integrate_rays_per_sec", phase_ndt_tm_frame)
+    tm_mapper, tm_seconds = timed("ndt_tm_integrate_rays_per_sec", phase_ndt_tm_frame)
     timed("ndt_layers_hardware_differential", phase_ndt_layers_hardware_differential)
     ndt_layers = timed("ndt_layers_rays_per_sec", phase_ndt_layers_bench)
-    timed("queries", phase_queries, outdoor["mapper"], tm_mapper)
+    queries = timed("queries", phase_queries, outdoor["mapper"], tm_mapper)
+    timed("ndt_tm_pipeline_frame_sec", phase_ndt_tm_pipeline, tm_mapper, tm_seconds, queries)
     del tm_mapper
     k5 = timed("k5_gather_f32", phase_k5)
     k6 = timed("k6_tsdf_deposit", phase_k6)
@@ -3916,6 +4194,9 @@ def main(argv=None) -> int:
     wide = timed("wide_outdoor", phase_wide_outdoor)
     seg_nt = timed("segmented_ndt_tsdf", phase_segmented_ndt_tsdf)
     p = timed("p", phase_p)
+    apps = timed("apps", phase_apps)
+    ohmpop_launches = {mode: apps["modes"][mode]["launches"] for mode in ("ndt", "ndt-tm", "tsdf")}
+    ohmpop_launches["occupancy"] = apps["ohmpop"]["launches"]
     foreign = sorted(n for n in sys.modules if n in ("jax", "ohm_tpu")
                      or n.startswith(("jax.", "ohm_tpu.")))
     if foreign:
@@ -3969,7 +4250,8 @@ def main(argv=None) -> int:
             wide_outdoor_launches=wide["launches"]["expand_keys"],
             segmented_ndt_om_launches=seg_nt["launches"]["ndt_om"]["expand_keys"],
             segmented_tsdf_launches=seg_nt["launches"]["tsdf"]["expand_keys"],
-            segmented_differential_launches=seg_diff["occupancy"]["launches"]["expand_keys"]),
+            segmented_differential_launches=seg_diff["occupancy"]["launches"]["expand_keys"],
+            ohmpop_launches={mode: n["expand_keys"] for mode, n in ohmpop_launches.items()}),
         row("deposit_and_sweep", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:439", bench,
             max(k2["max_abs_err"], layers["max_abs_err"]["deposit_and_sweep"],
                 outdoor["max_abs_err"]["deposit_and_sweep"], seg["max_abs_err"],
@@ -3987,12 +4269,15 @@ def main(argv=None) -> int:
             wide_outdoor_launches=wide["launches"]["deposit_and_sweep"],
             kernel_alone_ms=bench["k2_device"]["kernel_ms"],
             device_ops_per_call=bench["k2_device"]["device_ops"],
-            wrapper_cost=wrappers["deposit_and_sweep"]),
+            wrapper_cost=wrappers["deposit_and_sweep"],
+            ohmpop_launches=ohmpop_launches["occupancy"]["deposit_and_sweep"]),
         row("deposit_and_sweep_ndt", "deposit.cu", "ohm_tpu/ops/deposit_pallas.py:449", ndt,
             max(k3["max_abs_err"], ndt["max_abs_err"]["deposit_and_sweep_ndt"],
                 seg_nt["max_abs_err"]["deposit_and_sweep_ndt"],
                 ndt_layers["max_abs_err"]["deposit_and_sweep_ndt"]),
             ndt_layers_launches=ndt_layers["launches"]["deposit_and_sweep_ndt"],
+            ohmpop_launches={mode: ohmpop_launches[mode]["deposit_and_sweep_ndt"]
+                             for mode in ("ndt", "ndt-tm")},
             ndt_layers_ms=ndt_layers["ms"]["deposit_and_sweep_ndt"],
             ndt_layers_plain_ms=ndt_layers["plain_ms"]["deposit_and_sweep_ndt"],
             ndt_layers_kernel_alone_ms=ndt_layers["alone_ms"]["deposit_and_sweep_ndt"],
@@ -4024,6 +4309,8 @@ def main(argv=None) -> int:
                 seg_nt["max_abs_err"]["gather_ndt_flags"],
                 ndt_layers["max_abs_err"]["gather_ndt_flags"]),
             ndt_layers_launches=ndt_layers["launches"]["gather_ndt_flags"],
+            ohmpop_launches={mode: ohmpop_launches[mode]["gather_ndt_flags"]
+                             for mode in ("ndt", "ndt-tm")},
             ndt_layers_ms=ndt_layers["ms"]["gather_ndt_flags"],
             ndt_layers_plain_ms=ndt_layers["plain_ms"]["gather_ndt_flags"],
             ndt_layers_kernel_alone_ms=ndt_layers["alone_ms"]["gather_ndt_flags"],
@@ -4052,6 +4339,7 @@ def main(argv=None) -> int:
             max(visits["max_abs_err"], tsdf["max_abs_err"]["tsdf_visits"],
                 seg_nt["max_abs_err"]["tsdf_visits"]),
             segmented_tsdf_launches=seg_nt["launches"]["tsdf"]["tsdf_visits"],
+            ohmpop_launches=ohmpop_launches["tsdf"]["tsdf_visits"],
             segmented_tsdf_ms=seg_nt["ms"]["tsdf_visits"],
             segmented_tsdf_plain_ms=seg_nt["plain_ms"]["tsdf_visits"],
             **tsdf["fused"]),

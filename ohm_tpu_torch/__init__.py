@@ -6,9 +6,15 @@ it keeps its own copies of the host modules it needs, under the same
 sub-package names (numpy, not ported).
 
 Layer map (each module names its ``ohm_tpu`` counterpart):
+  app/               ohmpop, the other CLIs, the harness (ohm_tpu/app; harness.build_mapper
+                     builds this package's mappers: --device cuda | cpu | oracle)
+  io/                .ohm, PLY, PCD, LAS/LAZ, SLAM clouds (ohm_tpu/io, copies but
+                     slam.transform_samples_device, in PyTorch)
+  heightmap/         2.5D heightmaps                   (ohm_tpu/heightmap, copies)
+  tools/, utils/     map generators; log, progress, profile, trace (copies)
   core/              host map, layout, keys, filters   (ohm_tpu/core, copies)
-  oracle/            f64 ground truth                  (ohm_tpu/oracle, copies)
-  native/            rayflow host pass in C++          (ohm_tpu/native, copy)
+  oracle/            f64 ground truth, secondary samples (ohm_tpu/oracle, copies)
+  native/            rayflow host pass, LASzip codec in C++ (ohm_tpu/native, copies)
   device.py          explicit device choice; no silent fall back to the CPU
   mapping/batch.py   rayflow host wire              (ohm_tpu/mapping/batch.py)
   mapping/arena.py   device voxel arena             (ohm_tpu/mapping/arena.py)

@@ -1,16 +1,18 @@
-"""The rayflow host pass in C++ (``batch_prep.cpp``), bound with ctypes.
+"""The rayflow host pass (``batch_prep.cpp``) and the LASzip codec
+(``laszip.cpp``) in C++, bound with ctypes.
 
-``batch_prep.cpp`` is a copy of ``ohm_tpu/native/batch_prep.cpp``.  This
-loader keeps only what the port calls (``mapping.batch``): the map
-parameters struct, the segmented wire's ``count_segments``,
-``fill_segments``, ``unique_regions``, ``compact_wire`` and
-``lookup_slots``, and the rayflow wire's ``rayflow_build`` and
-``rayflow_finish``, each as in ``ohm_tpu/native/__init__.py``.  The
-library builds on first use with the reference's flags into
-``ohm_tpu_torch/_build/`` (ignored by git), and a failed build raises: the
-port has no numpy rayflow wire to fall back to.
-``build(force=True)`` rebuilds it, so a library built on another machine
-(``-march=native``) is never loaded by mistake.
+Both sources are copies of ``ohm_tpu/native``'s.  This loader keeps only
+what the port calls: for ``mapping.batch``, the map parameters struct, the
+segmented wire's ``count_segments``, ``fill_segments``, ``unique_regions``,
+``compact_wire`` and ``lookup_slots``, and the rayflow wire's
+``rayflow_build`` and ``rayflow_finish``; for ``io.las``, the ``laz_*``
+codec calls; each as in ``ohm_tpu/native/__init__.py``.  Each library
+builds on first use with the reference's flags into ``ohm_tpu_torch/_build/``
+(ignored by git), and a failed build raises with g++'s errors: the port has
+no numpy rayflow wire to fall back to, and no .laz reader without the codec.
+``build(force=True)`` and ``build_laz(force=True)`` rebuild them, so a
+library built on another machine (``-march=native``) is never loaded by
+mistake.
 """
 
 from __future__ import annotations
@@ -37,23 +39,27 @@ class MapParamsStruct(ctypes.Structure):
     ]
 
 
+def _compile(src: str, lib: str, flags: list, force: bool) -> str:
+    """g++ ``src`` into the shared library ``lib`` unless it is newer than
+    its source; returns its path.  Raises with g++'s errors when it fails."""
+    if not force and os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        return lib
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run(["g++", *flags, "-shared", "-fPIC", src, "-o", tmp],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {src} ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
 def build(force: bool = False) -> str:
-    """Compile the library unless it is newer than its source; returns its
-    path.  Raises when g++ fails."""
-    if not force and os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
-        return _LIB
-    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    """Compile the rayflow host pass (see ``_compile``)."""
     # -ffp-contract=off: the endpoint quantisation must round like the f64
     # oracle; a contracted a*b - c flips floor() for points exactly on a
     # voxel boundary.
-    proc = subprocess.run(["g++", "-O3", "-march=native", "-ffp-contract=off", "-shared",
-                           "-fPIC", _SRC, "-o", tmp], capture_output=True, text=True,
-                          timeout=120)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {_SRC} ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, _LIB)
-    return _LIB
+    return _compile(_SRC, _LIB, ["-O3", "-march=native", "-ffp-contract=off"], force)
 
 
 def _ptr(arr, ctype):
@@ -257,3 +263,172 @@ def lookup_slots(regions, table):
         _ptr(table.slot, ctypes.c_int32), ctypes.c_int32(table.table_size),
         _ptr(out, ctypes.c_int32))
     return out.reshape(regions.shape[:-1])
+
+
+# --------------------------------------------------------------------------- #
+# LASzip (.laz) point codec: laszip.cpp, a copy of ohm_tpu/native/laszip.cpp,
+# built as its own library into ohm_tpu_torch/_build/.  The entries below
+# get_laz_lib are copies of the reference's.
+
+_LAZ_SRC = os.path.join(_HERE, "laszip.cpp")
+_LAZ_LIB = os.path.join(os.path.dirname(_HERE), "_build", "libohmlaz.so")
+_laz_lib = None
+
+
+def build_laz(force: bool = False) -> str:
+    """Compile the LASzip codec (see ``_compile``)."""
+    return _compile(_LAZ_SRC, _LAZ_LIB, ["-O2"], force)
+
+
+def get_laz_lib():
+    """The LASzip codec library, built on first use (a failed build raises)."""
+    global _laz_lib
+    if _laz_lib is None:
+        lib = ctypes.CDLL(build_laz())
+        for fn in ("laszip_decompress", "laszip_compress",
+                   "laszip_decompress_layered", "laszip_compress_layered",
+                   "laszip_read_chunk_table", "laszip_write_chunk_table",
+                   "laszip_read_chunk_table_variable",
+                   "laszip_write_chunk_table_variable"):
+            getattr(lib, fn).restype = ctypes.c_int64
+        _laz_lib = lib
+    return _laz_lib
+
+
+def laz_decompress(stream: np.ndarray, item_types, item_sizes, n_points: int,
+                   chunk_size: int, chunk_starts, layered: bool = False,
+                   chunk_counts=None) -> np.ndarray:
+    """Decompress a LASzip point stream into raw point records
+    (u8[n_points, point_size]).  ``chunk_starts`` are byte offsets of each
+    chunk within ``stream``; ``layered`` selects the compressor-3 framing
+    (LAS 1.4 point formats 6+).  ``chunk_counts`` gives per-chunk point
+    counts for variable-chunked streams (chunk_size == 0xFFFFFFFF)."""
+    lib = get_laz_lib()
+    if lib is None:
+        raise RuntimeError("LASzip codec unavailable (no C++ compiler)")
+    types = np.ascontiguousarray(item_types, np.int32)
+    sizes = np.ascontiguousarray(item_sizes, np.int32)
+    starts = np.ascontiguousarray(chunk_starts, np.int64)
+    point_size = int(sizes.sum())
+    stream = np.ascontiguousarray(stream, np.uint8)
+    out = np.zeros(n_points * point_size, np.uint8)
+    if chunk_counts is not None:
+        chunk_counts = np.ascontiguousarray(chunk_counts, np.int64)
+        counts_ptr = _ptr(chunk_counts, ctypes.c_int64)
+    else:
+        counts_ptr = None
+    fn = lib.laszip_decompress_layered if layered else lib.laszip_decompress
+    rc = fn(
+        _ptr(stream, ctypes.c_uint8), ctypes.c_int64(stream.size),
+        _ptr(types, ctypes.c_int32), _ptr(sizes, ctypes.c_int32),
+        ctypes.c_int32(len(types)), ctypes.c_int64(n_points),
+        ctypes.c_uint32(chunk_size & 0xFFFFFFFF),
+        _ptr(starts, ctypes.c_int64), ctypes.c_int32(len(starts)),
+        counts_ptr, _ptr(out, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"LASzip decompression failed (code {rc})")
+    return out.reshape(n_points, point_size)
+
+
+def laz_compress(records: np.ndarray, item_types, item_sizes,
+                 chunk_size: int = 50000, layered: bool = False,
+                 chunk_counts=None):
+    """Compress raw point records (u8[n_points, point_size]) into a LASzip
+    stream (``layered`` = compressor-3 framing for LAS 1.4 formats 6+).
+    ``chunk_counts`` selects VARIABLE chunking with the given per-chunk
+    point counts (pass chunk_size=0xFFFFFFFF in the VLR in that case).
+    Returns (stream bytes, chunk byte lengths)."""
+    lib = get_laz_lib()
+    if lib is None:
+        raise RuntimeError("LASzip codec unavailable (no C++ compiler)")
+    records = np.ascontiguousarray(records, np.uint8)
+    n_points, point_size = records.shape
+    types = np.ascontiguousarray(item_types, np.int32)
+    sizes = np.ascontiguousarray(item_sizes, np.int32)
+    assert int(sizes.sum()) == point_size
+    if chunk_counts is not None:
+        chunk_counts = np.ascontiguousarray(chunk_counts, np.int64)
+        assert int(chunk_counts.sum()) >= n_points, "chunk counts must cover all points"
+        counts_ptr = _ptr(chunk_counts, ctypes.c_int64)
+        n_chunk_cap = len(chunk_counts)
+    else:
+        counts_ptr = None
+        eff_chunk = n_points if chunk_size == 0xFFFFFFFF else chunk_size
+        n_chunk_cap = max(1, -(-n_points // max(eff_chunk, 1)))
+    chunk_bytes = np.zeros(n_chunk_cap, np.int64)
+    n_chunks = np.zeros(1, np.int32)
+    cap = records.size + 4096 + 64 * n_chunk_cap
+    fn = lib.laszip_compress_layered if layered else lib.laszip_compress
+    while True:
+        out = np.zeros(cap, np.uint8)
+        total = fn(
+            _ptr(records, ctypes.c_uint8), ctypes.c_int64(n_points),
+            _ptr(types, ctypes.c_int32), _ptr(sizes, ctypes.c_int32),
+            ctypes.c_int32(len(types)), ctypes.c_uint32(chunk_size & 0xFFFFFFFF),
+            counts_ptr, _ptr(out, ctypes.c_uint8), ctypes.c_int64(cap),
+            _ptr(chunk_bytes, ctypes.c_int64), _ptr(n_chunks, ctypes.c_int32))
+        if total == -1:  # incompressible input: retry with a larger buffer
+            cap *= 2
+            continue
+        if total < 0:
+            raise ValueError(f"LASzip compression failed (code {total})")
+        return bytes(out[:total]), chunk_bytes[: int(n_chunks[0])].tolist()
+
+
+def laz_read_chunk_table(payload: np.ndarray, n_chunks: int) -> np.ndarray:
+    """Decode the arithmetic-coded chunk-size list (after the u32 version /
+    u32 count words of the chunk table)."""
+    lib = get_laz_lib()
+    payload = np.ascontiguousarray(payload, np.uint8)
+    out = np.zeros(n_chunks, np.int64)
+    rc = lib.laszip_read_chunk_table(
+        _ptr(payload, ctypes.c_uint8), ctypes.c_int64(payload.size),
+        ctypes.c_int32(n_chunks), _ptr(out, ctypes.c_int64))
+    if rc != 0:
+        raise ValueError(f"LASzip chunk table decode failed (code {rc})")
+    return out
+
+
+def laz_write_chunk_table(chunk_bytes) -> bytes:
+    lib = get_laz_lib()
+    arr = np.ascontiguousarray(chunk_bytes, np.int64)
+    cap = 16 + 8 * max(len(arr), 1)
+    out = np.zeros(cap, np.uint8)
+    n = lib.laszip_write_chunk_table(
+        _ptr(arr, ctypes.c_int64), ctypes.c_int32(len(arr)),
+        _ptr(out, ctypes.c_uint8), ctypes.c_int64(cap))
+    if n < 0:
+        raise ValueError("LASzip chunk table encode overflow")
+    return bytes(out[:n])
+
+
+def laz_read_chunk_table_variable(payload: np.ndarray, n_chunks: int):
+    """Decode a VARIABLE chunk table payload (chunk_size == 0xFFFFFFFF):
+    per-chunk (point count, byte size) pairs.  Returns (counts, bytes)."""
+    lib = get_laz_lib()
+    payload = np.ascontiguousarray(payload, np.uint8)
+    counts = np.zeros(n_chunks, np.int64)
+    nbytes = np.zeros(n_chunks, np.int64)
+    rc = lib.laszip_read_chunk_table_variable(
+        _ptr(payload, ctypes.c_uint8), ctypes.c_int64(payload.size),
+        ctypes.c_int32(n_chunks), _ptr(counts, ctypes.c_int64),
+        _ptr(nbytes, ctypes.c_int64))
+    if rc != 0:
+        raise ValueError(f"LASzip variable chunk table decode failed (code {rc})")
+    return counts, nbytes
+
+
+def laz_write_chunk_table_variable(chunk_counts, chunk_bytes) -> bytes:
+    lib = get_laz_lib()
+    counts = np.ascontiguousarray(chunk_counts, np.int64)
+    arr = np.ascontiguousarray(chunk_bytes, np.int64)
+    assert len(counts) == len(arr)
+    cap = 16 + 16 * max(len(arr), 1)
+    out = np.zeros(cap, np.uint8)
+    n = lib.laszip_write_chunk_table_variable(
+        _ptr(counts, ctypes.c_int64), _ptr(arr, ctypes.c_int64),
+        ctypes.c_int32(len(arr)), _ptr(out, ctypes.c_uint8),
+        ctypes.c_int64(cap))
+    if n < 0:
+        raise ValueError("LASzip variable chunk table encode overflow")
+    return bytes(out[:n])

@@ -1,1 +1,2 @@
-"""Command-line probes of the port (``python -m ohm_tpu_torch.scripts.<name>``)."""
+"""Command-line probes and timing runs of the port
+(``python -m ohm_tpu_torch.scripts.<name>``)."""

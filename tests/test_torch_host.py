@@ -1,18 +1,25 @@
 """The port's own host layer against the JAX package's, which it copies:
 
-  source      every copied module (core, oracle, query, mapping.mapper) and
-              batch_prep.cpp equals its
-              original once the import paths are rewritten; the one listed
-              difference is core/filters.py, which ORs np.uint32 flags (numpy
+  source      every copied module (core, oracle, query, mapping.mapper, and
+              io, heightmap, tools, utils and app) and batch_prep.cpp and
+              laszip.cpp equal their
+              originals once the import paths are rewritten; the listed
+              differences are core/filters.py, which ORs np.uint32 flags (numpy
               2.1 and later refuse the original's in-place OR of an IntFlag
-              into a uint32 array)
+              into a uint32 array), the device choices of ohmpop, ohmquery
+              and timing_run, io/pcd.py's docstring, io/slam.py's
+              transform_samples_device (PyTorch in place of a jitted
+              function) and app/harness.py, whose option, stats and harness
+              classes keep the original's text but for the default device
+              and the JAX compile-cache switch
   behaviour   the same OccupancyMap operations give the same chunk arrays,
               layer by layer and member by member, and the layouts the same
               voxel structs and clear bytes
   native      the copied rayflow pass gives the same wire bytes as
               ohm_tpu.native on two scenes
   oracle      the copied f64 oracles leave chunk arrays bit-identical to
-              ohm_tpu.oracle's for occupancy, NDT-OM, NDT-TM and TSDF"""
+              ohm_tpu.oracle's for occupancy, NDT-OM, NDT-TM, TSDF and the
+              secondary samples"""
 
 import os
 import re
@@ -29,12 +36,14 @@ from ohm_tpu.mapping import batch as ref_batch
 from ohm_tpu.oracle.ndt import NdtParams as RefNdtParams
 from ohm_tpu.oracle.ndt import RayMapperNdt as RefNdt
 from ohm_tpu.oracle.occupancy import RayMapperOccupancy as RefOccupancy
+from ohm_tpu.oracle.secondary import RayMapperSecondarySample as RefSecondary
 from ohm_tpu.oracle.tsdf import RayMapperTsdf as RefTsdf
 from ohm_tpu.oracle.tsdf import TsdfOptions as RefTsdfOptions
 from ohm_tpu_torch.mapping import batch as port_batch
 from ohm_tpu_torch.mapping.arena import VoxelArena
 from ohm_tpu_torch.oracle.ndt import NdtParams, RayMapperNdt
 from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
+from ohm_tpu_torch.oracle.secondary import RayMapperSecondarySample
 from ohm_tpu_torch.oracle.tsdf import RayMapperTsdf, TsdfOptions
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +53,41 @@ COPIES += [("oracle", m) for m in ("linewalk", "occupancy", "ndt", "tsdf")]
 COPIES += [("query", m) for m in ("base", "nearest", "line_query")]
 COPIES += [("mapping", "mapper")]
 COPIES += [("core", m) for m in ("compare", "copyutil", "voxel", "compression", "density")]
-_IMPORT = re.compile(r"^(\s*)(from|import) ohm_tpu\.", re.MULTILINE)
+COPIES += [("io", m) for m in ("__init__", "ply", "las", "serialise")]
+COPIES += [("oracle", "secondary")]
+COPIES += [("heightmap", m) for m in ("__init__", "heightmap", "image", "mesh")]
+COPIES += [("tools", m) for m in ("__init__", "gen")]
+COPIES += [("utils", m) for m in ("__init__", "log", "progress", "profile", "trace")]
+COPIES += [("app", m) for m in ("export", "ohminfo", "ohm2ply", "ohmheightmap", "ohmhm2img",
+                                "ohmfilter", "ohmprob", "ohmcmp", "ohmsubmap")]
+#: Copies with a few lines rewritten: (source, port copy) -> [(original
+#: text, the port's)], each original text found once.
+_DEVICE = ('    p.add_argument("--device", choices=["tpu", "cpu"], default="tpu")\n',
+           '    p.add_argument("--device", choices=["cuda", "cpu", "oracle"], default="cuda",\n'
+           '                   help="cuda: the port\'s mappers on the card; cpu: their plain PyTorch "\n'
+           '                        "versions; oracle: the f64 host mappers")\n')
+REWRITTEN = {
+    ("ohm_tpu/app/__init__.py", "ohm_tpu_torch/app/__init__.py"): [
+        ("(python -m ohm_tpu.app.<tool>)", "(python -m ohm_tpu_torch.app.<tool>)")],
+    ("ohm_tpu/app/ohmpop.py", "ohm_tpu_torch/app/ohmpop.py"): [
+        ("'--device tpu' replaces", "'--device cuda' replaces"), _DEVICE],
+    ("ohm_tpu/app/ohmquery.py", "ohm_tpu_torch/app/ohmquery.py"): [
+        ('.split()[0]))\n', '.split()[0]))\n'
+         '    ry.add_argument("--device", choices=["cuda", "cpu"], default="cuda")\n'),
+        ("RaysQuery(m)", "RaysQuery(m, device=args.device)")],
+    ("scripts/timing_run.py", "ohm_tpu_torch/scripts/timing_run.py"): [
+        ("#!/usr/bin/env python3\n", ""),
+        ("TPU-native analogue of", "Analogue of"),
+        ("``ohm_tpu.app.ohmpop``", "``ohm_tpu_torch.app.ohmpop``"),
+        ("python scripts/timing_run.py", "python -m ohm_tpu_torch.scripts.timing_run"),
+        ("--device tpu cpu", "--device cuda cpu"),
+        ("\nsys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))\n",
+         ""),
+        ('"ohm_tpu timing matrix"', '"ohm_tpu_torch timing matrix"'),
+        ('default=["tpu"], choices=["tpu", "cpu"]',
+         'default=["cuda"], choices=["cuda", "cpu", "oracle"]')],
+}
+_IMPORT = re.compile(r"^(\s*)(from|import) ohm_tpu\b", re.MULTILINE)
 #: The numpy 2 fix: flags OR'ed as np.uint32.
 _FILTER_OR = re.compile(r"\|= (RayFilterFlag\.\w+)")
 
@@ -56,7 +99,7 @@ def _read(*parts) -> str:
 
 @pytest.mark.parametrize("package,module", COPIES)
 def test_copied_module_matches_its_source(package, module):
-    ref = _IMPORT.sub(r"\1\2 ohm_tpu_torch.", _read("ohm_tpu", package, module + ".py"))
+    ref = _IMPORT.sub(r"\1\2 ohm_tpu_torch", _read("ohm_tpu", package, module + ".py"))
     if module == "filters":
         assert _FILTER_OR.search(ref)
         ref = _FILTER_OR.sub(r"|= np.uint32(\1)", ref)
@@ -68,10 +111,73 @@ def test_native_source_is_a_copy():
             == _read("ohm_tpu", "native", "batch_prep.cpp"))
 
 
-#: The segmented wire's loader entries, which the port's native/__init__.py
-#: copies verbatim.
+def test_laszip_source_is_a_copy():
+    assert (_read("ohm_tpu_torch", "native", "laszip.cpp")
+            == _read("ohm_tpu", "native", "laszip.cpp"))
+
+
+@pytest.mark.parametrize("source,port", list(REWRITTEN), ids=lambda p: p.split("/")[-1])
+def test_rewritten_copy_differs_only_where_listed(source, port):
+    ref = _IMPORT.sub(r"\1\2 ohm_tpu_torch", _read(source))
+    for old, new in REWRITTEN[(source, port)]:
+        assert ref.count(old) == 1, old
+        ref = ref.replace(old, new)
+    assert _read(port) == ref
+
+
+def _without(text: str, start: str, end: str) -> str:
+    """``text`` less the part from ``start`` up to ``end``, each found once."""
+    assert text.count(start) == 1 and text.count(end) == 1
+    return text[:text.index(start)] + text[text.index(end):]
+
+
+def test_pcd_copy_differs_only_in_its_docstring():
+    """io/pcd.py's docstring names the reference's PDAL reader by its path in
+    the reference's tree, not on a machine; the code is the original's."""
+    ref = _IMPORT.sub(r"\1\2 ohm_tpu_torch", _read("ohm_tpu", "io", "pcd.py"))
+    port = _read("ohm_tpu_torch", "io", "pcd.py")
+    assert port.startswith('"""') and port.split('"""', 2)[2] == ref.split('"""', 2)[2]
+    assert "slamio/PointCloudReaderPdal.cpp" in port.split('"""', 2)[1]
+
+
+def test_slam_copy_differs_only_in_its_device_transform():
+    """io/slam.py is a copy but for transform_samples_device, which is
+    PyTorch on an explicit device in the port (tests/test_torch_io.py holds
+    it to the JAX version)."""
+    cut = ("def transform_samples_device(", "class SlamCloudLoader")
+    ref = _IMPORT.sub(r"\1\2 ohm_tpu_torch", _read("ohm_tpu", "io", "slam.py"))
+    port = _read("ohm_tpu_torch", "io", "slam.py")
+    assert _without(port, *cut) == _without(ref, *cut)
+
+
+def test_harness_keeps_the_reference_classes():
+    """The harness's options, stats and run loop keep the reference's text,
+    but for the default device and the JAX compile-cache switch, which the
+    port leaves out (its kernels build once into ohm_tpu_torch/_build)."""
+    import inspect
+
+    import ohm_tpu.app.harness as ref
+    import ohm_tpu_torch.app.harness as port
+
+    for name in ("RayStats", "OutputOptions"):
+        assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(ref, name))
+    assert (inspect.getsource(port.MapOptions)
+            == inspect.getsource(ref.MapOptions).replace(
+                'device: str = "tpu"  # tpu | cpu (oracle)',
+                'device: str = "cuda"  # cuda | cpu (plain PyTorch) | oracle (f64 host)'))
+    assert port.MapOptions().device == "cuda"
+    run = _IMPORT.sub(r"\1\2 ohm_tpu_torch", inspect.getsource(ref.MapHarness))
+    run = _without(run, "        from ohm_tpu_torch.utils.cache import enable_persistent_cache\n",
+                   "        self._install_signals()\n")
+    assert inspect.getsource(port.MapHarness) == run
+
+
+#: The segmented wire's and the LASzip codec's loader entries, which the
+#: port's native/__init__.py copies verbatim.
 NATIVE_COPIES = ("MapParamsStruct", "_ptr", "count_segments", "fill_segments", "unique_regions",
-                 "compact_wire", "lookup_slots")
+                 "compact_wire", "lookup_slots", "laz_decompress", "laz_compress",
+                 "laz_read_chunk_table", "laz_write_chunk_table",
+                 "laz_read_chunk_table_variable", "laz_write_chunk_table_variable")
 
 
 @pytest.mark.parametrize("name", NATIVE_COPIES)
@@ -178,13 +284,15 @@ def _oracle_runs(kind):
                                   rng.normal(0.0, 0.01, 120)])
     intens = rng.uniform(10.0, 20.0, 120)
     out = []
-    for map_mod, occ, ndt, ndt_params, tsdf, tsdf_opts in (
-            (ref_map, RefOccupancy, RefNdt, RefNdtParams, RefTsdf, RefTsdfOptions),
+    for map_mod, occ, ndt, ndt_params, tsdf, tsdf_opts, secondary in (
+            (ref_map, RefOccupancy, RefNdt, RefNdtParams, RefTsdf, RefTsdfOptions, RefSecondary),
             (port_map, RayMapperOccupancy, RayMapperNdt, NdtParams, RayMapperTsdf,
-             TsdfOptions)):
+             TsdfOptions, RayMapperSecondarySample)):
         m = map_mod.OccupancyMap(resolution=0.25, flags=0)
         if kind == "occupancy":
             mapper = occ(m)
+        elif kind == "secondary":
+            mapper = secondary(m)
         elif kind == "tsdf":
             mapper = tsdf(m, tsdf_opts(default_truncation_distance=0.3))
         else:
@@ -198,7 +306,7 @@ def _oracle_runs(kind):
     return out
 
 
-@pytest.mark.parametrize("kind", ["occupancy", "ndt_om", "ndt_tm", "tsdf"])
+@pytest.mark.parametrize("kind", ["occupancy", "ndt_om", "ndt_tm", "tsdf", "secondary"])
 def test_oracle_copies_give_the_same_chunks(kind):
     ref, port = _oracle_runs(kind)
     assert len(port.chunks) > 0

@@ -1,7 +1,7 @@
 """The PyTorch port's boundaries: it imports and integrates without JAX and
 without any module of the JAX package (on the rayflow and the segmented
-wire), its default device is CUDA and never quietly the CPU, and its
-mappers take any map layout, as the reference's do."""
+wire; its apps from a .laz), its default device is CUDA and never quietly
+the CPU, and its mappers take any map layout, as the reference's do."""
 
 import ctypes
 import os
@@ -125,6 +125,45 @@ print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu."))
 def test_queries_import_and_run_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _QUERY_SCRIPT], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+_APPS_SCRIPT = """
+import os
+import sys
+import tempfile
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+import ohm_tpu_torch.app
+import ohm_tpu_torch.heightmap
+import ohm_tpu_torch.io
+from ohm_tpu_torch.app import ohmheightmap, ohminfo, ohmpop
+from ohm_tpu_torch.io.las import write_laz
+rng = np.random.default_rng(3)
+pts = np.column_stack([rng.uniform(-3, 3, (400, 2)), np.zeros(400)])
+t = 10.0 + np.arange(400) * 1e-3
+with tempfile.TemporaryDirectory() as d:
+    cloud, traj, base = (os.path.join(d, n) for n in ("c.laz", "t.txt", "map"))
+    write_laz(cloud, pts, timestamps=t)
+    with open(traj, "w") as f:
+        f.write(f"{t[0]} 0 0 1.5\\n{t[-1] + 1} 0 0 1.5\\n")
+    assert ohmpop.main([cloud, traj, "-o", base, "--resolution", "0.25", "--voxel-mean",
+                        "--arena-capacity", "64", "-q", "--device", "cpu"]) == 0
+    assert ohminfo.main([base + ".ohm"]) == 0
+    assert ohmheightmap.main([base + ".ohm", base + "-hm.ohm", "--clearance", "0.5"]) == 0
+print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu."))
+             or n in ("ohm_tpu", "triton")))
+"""
+
+
+def test_apps_import_and_run_with_jax_blocked():
+    """ohm_tpu_torch.app, .io and .heightmap import, and ohmpop builds a map
+    from a .laz on the CPU, with JAX blocked and no module of ohm_tpu
+    loaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _APPS_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
