@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the ohm_tpu_torch occupancy (with and without its side layers), NDT
 (with and without its side layers) and TSDF paths, on the rayflow and the
-segmented wire, the queries, the deposit probe, and ohmpop and the other
-CLIs from a .laz once on one NVIDIA GPU.
+segmented wire, sharded over four shards, the queries, the deposit probe,
+and ohmpop and the other CLIs from a .laz once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA device
     python3 chip_smoke.py --wrappers-of DIR   # only the wrapper_cost line, of
@@ -258,6 +258,26 @@ exit code is not 0 and no result line is printed:
                the fused flag gather, K3 and the fused per-visit kernel on
                the arguments each path gave them, against their plain
                versions bit for bit and timed beside them
+  sharded      ohm_tpu_torch.parallel on four shards (one a card where there
+               are four cards, else four on the one card): bench.py's box
+               (seed 2024, 0.1 m, 8192-ray batches, 512 slots a shard)
+               through ShardedRayFlowMapper (the rayflow wire routed on the
+               devices) and ShardedRayMapper (segments routed on the host),
+               4 warm-up and 12 timed batches each, fenced
+               (sharded_rayflow_rays_per_sec, sharded_rays_per_sec), K1-K3,
+               the flag gather and the fused TSDF kernel counted (launches
+               a batch), routed rays a ray, the last batch's per-shard
+               balance, a profile line of the rayflow mapper; occupancy bit
+               for bit against TorchRayMapper on the card on the same wire,
+               a second card run and, on 2 batches, the sharded run on the
+               CPU; NDT-OM (0.2 m) and TSDF through both mappers on 4
+               batches against TorchNdtMap and TorchTsdfMap on the card
+               (within 1e-5, non-finite values equal); one a2a step (no
+               routing drop, bit for bit); the eviction case at capacity 1
+               (tests/test_sharded.py's clusters, bit for bit); and
+               dryrun_multichip(4); then K1 (keys; voxel planes), K2, the
+               fused flag gather, K3 and the fused per-visit kernel against
+               their plain versions on one shard's arguments, bit for bit
 
 Each phase's seconds follow it on a "phase_seconds" line.
 
@@ -352,7 +372,7 @@ from ohm_tpu_torch.heightmap.heightmap import HEIGHTMAP_LAYER
 from ohm_tpu_torch.io import load as load_ohm
 from ohm_tpu_torch.io.las import write_laz
 from ohm_tpu_torch.io.slam import SlamCloudLoader
-from ohm_tpu_torch.mapping.batch import prepare_rayflow
+from ohm_tpu_torch.mapping.batch import prepare_ray_batch, prepare_rayflow
 from ohm_tpu_torch.oracle.ndt import NdtParams, RayMapperNdt
 from ohm_tpu_torch.oracle.occupancy import RayMapperOccupancy
 from ohm_tpu_torch.oracle.tsdf import RayMapperTsdf, TsdfOptions
@@ -363,6 +383,10 @@ from ohm_tpu_torch.ops.ddawalk import walk_rays
 from ohm_tpu_torch.ops.integrate import (apply_records, apply_sample_layers, expand_records,
                                          expand_walk)
 from ohm_tpu_torch.ops.wire import decode, unpack_batch
+from ohm_tpu_torch.parallel import (ResidentShardedArena, ShardedRayFlowMapper,
+                                    ShardedRayMapper, ShardMesh, dryrun_multichip,
+                                    make_source_batch, region_owner, sharded_integrate_a2a)
+from ohm_tpu_torch.parallel.dryrun import compare_maps, map_members
 from ohm_tpu_torch.query import ClearanceProcess, LineKeysQuery, RaysQuery
 from ohm_tpu_torch.query.rays_query import rays_query_device
 from ohm_tpu_torch.scripts import probe_deposit
@@ -3460,6 +3484,290 @@ def phase_segmented_ndt_tsdf() -> dict:
     return out
 
 
+#: The sharded phase: four shards (one a card where there are four, else
+#: all on the one card), bench.py's box at 0.1 m with a 512-slot arena a
+#: shard, the single-device mapper's.
+SHARDS = 4
+SHARDED_BATCHES = 12
+SHARDED_WARMUP = 4
+SHARDED_NDT_TSDF_BATCHES = 4
+SHARDED_CPU_BATCHES = 2
+#: Batches before the one whose kernel calls are held to the plain versions.
+SHARDED_CHECK_WARMUP = 6
+def sharded_mapper(cls, mesh, kind="occupancy", resolution=RESOLUTION, capacity=CAPACITY,
+                   validate=True):
+    m = OccupancyMap(resolution=resolution, flags=MapFlag.NONE)
+    return cls(m, mesh, kind=kind, capacity=capacity, validate=validate)
+
+
+def single_mapper(kind, rayflow: bool, resolution=RESOLUTION, capacity=CAPACITY):
+    m = OccupancyMap(resolution=resolution, flags=MapFlag.NONE)
+    cls = {"occupancy": TorchRayMapper, "ndt": TorchNdtMap, "tsdf": TorchTsdfMap}[kind]
+    return cls(m, capacity=capacity, validate=True, rayflow=rayflow, device="cuda")
+
+
+def run_batches(mapper, batches):
+    for b in batches:
+        mapper.integrate_rays(b)
+    mapper.sync_voxels()
+    return mapper.map
+
+
+def sharded_vs_single(a_map, b_map, kind="occupancy") -> dict:
+    """parallel.dryrun.compare_maps (occupancy bit for bit; NDT occupancy
+    and covariance, TSDF weight and distance within 1e-5, non-finite values
+    equal; raises otherwise) and whether every compared bit is equal."""
+    worst = compare_maps(a_map, b_map, kind)
+    a, b = map_members(a_map, kind), map_members(b_map, kind)
+    same = all(np.array_equal(a[k].view(np.uint32), b[k].view(np.uint32)) for k in a)
+    return {"worst_abs_diff": worst, "bit_identical": bool(same), "members": len(a)}
+
+
+def _snapshots(args, kwargs):
+    return _snapshot(args), _snapshot(kwargs)
+
+
+def busiest_shard_calls(calls: dict, primary: str, score) -> dict:
+    """Of one batch's calls of each kernel (one a shard, in shard order),
+    the busiest shard's: the one whose ``primary`` kernel call scores
+    highest (``score(args)``)."""
+    s = int(np.argmax([score(args) for args, _ in calls[primary]]))
+    return {name: seen[s] for name, seen in calls.items()}
+
+
+def live_keys(args) -> int:
+    """Live records of a K2 call (occ, key_s, cfg) or a K3 call (occ, walk,
+    end, delta, cfg)."""
+    cfg = args[-1]
+    return int(sum(((k >> 1) < cfg.sentinel).sum() for k in args[1:-1]
+                   if isinstance(k, torch.Tensor)))
+
+
+def live_visits(args) -> int:
+    ids, sentinel = args[2], args[7]
+    return int((ids < sentinel).sum())
+
+
+def sharded_kernel_checks(calls: dict) -> dict:
+    """Each kernel against its plain version on one shard's arguments, as
+    the sharded paths gave them (the busiest shard's call in one batch): K1
+    (keys; voxel planes for NDT and TSDF), K2, the fused flag gather and
+    K3, the fused per-visit kernel.  Bit for bit; rows with max_abs_err."""
+    # A kernel launches on the current device; with one shard a card a
+    # shard's tensors lie on another.
+    with torch.cuda.device(calls["k2"][0][1].device):
+        rows = {"expand_keys_occupancy": check_k1_call(calls["k1_occupancy"]),
+                "deposit_and_sweep": check_k2_call(calls["k2"])}
+    with torch.cuda.device(calls["k3"][0][1].device):
+        rows["expand_keys_ndt"] = check_k1_call(calls["k1_ndt"])
+        nd = check_ndt_kernel_calls(calls["gather_ndt_flags"], calls["k3"])
+    rows["gather_ndt_flags"] = nd["gather_ndt_flags"]
+    rows["deposit_and_sweep_ndt"] = nd["deposit_and_sweep_ndt"]
+    with torch.cuda.device(calls["tsdf_visits"][0][2].device):
+        rows["expand_keys_tsdf"] = check_k1_call(calls["k1_tsdf"])
+        visits = check_tsdf_visits(*calls["tsdf_visits"][0])
+    visits["bit_identical"] = (visits["bit_identical"] and visits["runs_bit_identical"]
+                               and visits["stored_voxels"] > 0)
+    rows["tsdf_visits"] = visits
+    emit({"phase": "sharded_kernel_checks", "tolerance": 0, **rows})
+    if not all(r["bit_identical"] for r in rows.values()):
+        raise AssertionError(f"a kernel differs from its plain version on a shard: {rows}")
+    return rows
+
+
+def phase_sharded() -> dict:
+    """ohm_tpu_torch.parallel on the card: the occupancy box through both
+    sharded mappers (timed, launches counted, against TorchRayMapper, a
+    second card run and the CPU), NDT-OM and TSDF through both against
+    TorchNdtMap and TorchTsdfMap, one a2a step, the eviction case and
+    dryrun_multichip; each kernel against its plain version on one shard's
+    arguments."""
+    mesh = ShardMesh.over_cards(SHARDS, "cuda")
+    names = [torch.cuda.get_device_name(d) for d in mesh.devices]
+    rng = np.random.default_rng(SEED)
+    batches = [box_scene_rays(RAYS_PER_BATCH, rng)
+               for _ in range(SHARDED_WARMUP + SHARDED_BATCHES)]
+    warm, timed_b = batches[:SHARDED_WARMUP], batches[SHARDED_WARMUP:]
+    counters = {"expand_keys": expand_cuda.expand_keys,
+                "deposit_and_sweep": deposit_cuda.deposit_and_sweep,
+                "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt,
+                "gather_ndt_flags": gather_cuda.gather_ndt_flags,
+                "tsdf_visits": tsdf_cuda.tsdf_visits}
+    out = {"n_shards": mesh.n_shards, "devices": [str(d) for d in mesh.devices],
+           "device_names": names, "launches": {}, "checks": {}, "evictions": {}}
+    wires = {"rayflow": (ShardedRayFlowMapper, True), "routed": (ShardedRayMapper, False)}
+
+    # Occupancy: both mappers timed, counted, and held to the single-device
+    # mapper, a second card run and the CPU.
+    for wire, (cls, rayflow) in wires.items():
+        # Validated after the timed batches (a validated batch reads its
+        # stats back at once).
+        mapper = sharded_mapper(cls, mesh, validate=False)
+        for b in warm:
+            mapper.integrate_rays(b)
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        with without_gc_pauses():
+            t0 = time.perf_counter()
+            for b in timed_b:
+                mapper.integrate_rays(b)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        out["launches"][f"{wire}_occupancy"] = read_counts(counters)
+        out[f"{wire}_rays_per_sec"] = RAYS_PER_BATCH * len(timed_b) / elapsed
+        mapper.sync_voxels()
+        st = mapper.stats
+        if st["overflow"]:
+            raise AssertionError(f"a sharded {wire} batch overflowed its walk: {st}")
+        if wire == "rayflow":
+            out["routed_rays_per_ray"] = st["routed_rays"] / st["rays"]
+            out["last_balance"] = mapper.last_balance
+            out["wire_bytes_per_ray"] = st["wire_bytes"] / st["rays"]
+            if st["routing_dropped"] or st["compaction_dropped"]:
+                raise AssertionError(f"sharded rayflow dropped records: {st}")
+        else:
+            out["routed_segments_per_segment"] = st["routed_records"] / st["segments"]
+        out["arena_stats"] = dict(mapper.arena.stats)
+        single = run_batches(single_mapper("occupancy", rayflow), batches)
+        again = run_batches(sharded_mapper(cls, mesh), batches)
+        card_cut = run_batches(sharded_mapper(cls, mesh), batches[:SHARDED_CPU_BATCHES])
+        cpu_cut = run_batches(sharded_mapper(cls, ShardMesh.repeat("cpu", SHARDS)),
+                              batches[:SHARDED_CPU_BATCHES])
+        out["checks"][f"{wire}_occupancy"] = {
+            "vs_single_device": sharded_vs_single(mapper.map, single),
+            "two_card_runs": sharded_vs_single(mapper.map, again),
+            "vs_cpu_2_batches": sharded_vs_single(card_cut, cpu_cut)}
+    rf_mapper = sharded_mapper(ShardedRayFlowMapper, mesh)
+    for b in warm:
+        rf_mapper.integrate_rays(b)
+    profile_main_path(rf_mapper, timed_b[:8], path="sharded_rayflow")
+
+    # NDT-OM (0.2 m) and TSDF (0.1 m) through both mappers.
+    nt_batches = batches[:SHARDED_NDT_TSDF_BATCHES]
+    for kind, res in (("ndt", NDT_RESOLUTION), ("tsdf", RESOLUTION)):
+        for wire, (cls, rayflow) in wires.items():
+            zero_counts(counters)
+            sh = run_batches(sharded_mapper(cls, mesh, kind, resolution=res), nt_batches)
+            out["launches"][f"{wire}_{kind}"] = read_counts(counters)
+            ref = single_mapper(kind, rayflow, resolution=res)
+            run_batches(ref, nt_batches)
+            if kind == "ndt" and ref.stats["ndt_overflow"]:
+                raise AssertionError("the single-device NDT reference overflowed its miss_k")
+            out["checks"][f"{wire}_{kind}"] = {
+                "vs_single_device": sharded_vs_single(sh, ref.map, kind)}
+
+    # One a2a step against the single-device mapper on the segmented wire.
+    ref_a = single_mapper("occupancy", False)
+    prepared = prepare_ray_batch(ref_a.map, timed_b[0], segment_length=ref_a.segment_length)
+    arena_a = ResidentShardedArena(mesh, CAPACITY, ref_a.region_shift, ["occupancy"])
+    arena_a.ensure_regions(prepared.region_keys)
+    batch_a, max_pairs = make_source_batch(prepared, arena_a, mesh)
+    cap_a = max(64, 1 << (max_pairs - 1).bit_length())
+    zero_counts(counters)
+    stats_a = sharded_integrate_a2a(mesh, ref_a._config(0), cap_a, ref_a.region_shift)(
+        arena_a.layers, batch_a)
+    out["launches"]["a2a"] = read_counts(counters)
+    m_a = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
+    arena_a.sync_to_host(m_a)
+    out["a2a_routing_dropped"] = int(stats_a["routing_dropped"].sum())
+    if out["a2a_routing_dropped"]:
+        raise AssertionError("the a2a step dropped routed segments")
+    out["checks"]["a2a"] = {"vs_single_device": sharded_vs_single(
+        m_a, run_batches(ref_a, timed_b[:1]))}
+
+    # Eviction at capacity 1 a shard (tests/test_sharded.py's clusters).
+    cand = np.array([[i, 0, 0] for i in range(48)])
+    owners = region_owner(cand, SHARDS)
+    hot = next(s for s in range(SHARDS) if (owners == s).sum() >= 2)
+    r_a, r_b = cand[owners == hot][:2]
+    rng_e = np.random.default_rng(13)
+
+    def cluster(region, n=96):
+        rays = rng_e.uniform(-1.5, 1.5, (2 * n, 3))
+        rays[0::2] *= 0.05
+        return rays + np.asarray(region, dtype=float) * 8.0  # 0.25 m x 32: 8 m regions
+
+    evict = [cluster(r_a), cluster(r_b), cluster(r_a), cluster(r_b), cluster(r_a)]
+    for wire, (cls, rayflow) in wires.items():
+        sh = sharded_mapper(cls, mesh, resolution=0.25, capacity=1)
+        run_batches(sh, evict)
+        ref = run_batches(single_mapper("occupancy", rayflow, resolution=0.25), evict)
+        out["evictions"][wire] = sh.arena.stats["evictions"]
+        out["checks"][f"{wire}_eviction"] = {"vs_single_device": sharded_vs_single(sh.map, ref)}
+        if sh.arena.stats["evictions"] < len(evict) - 1:
+            raise AssertionError(f"the {wire} eviction case evicted too little")
+
+    out["dryrun"] = dryrun_multichip(SHARDS)
+
+    # Each kernel on one shard's arguments: of one batch's calls (one a
+    # shard), the busiest shard's (the most live deposit records), after six
+    # batches so that some voxels hold samples.
+    mappers = {kind: sharded_mapper(ShardedRayFlowMapper, mesh, kind,
+                                    resolution=NDT_RESOLUTION if kind == "ndt" else RESOLUTION)
+               for kind in ("occupancy", "ndt", "tsdf")}
+    check_batch = batches[SHARDED_CHECK_WARMUP]
+    for mp in mappers.values():
+        run_batches(mp, batches[:SHARDED_CHECK_WARMUP])
+    kernels = {"occupancy": {"k1_occupancy": (expand_cuda, "expand_keys"),
+                             "k2": (deposit_cuda, "deposit_and_sweep")},
+               "ndt": {"k1_ndt": (expand_cuda, "expand_keys"),
+                       "gather_ndt_flags": (gather_cuda, "gather_ndt_flags"),
+                       "k3": (deposit_cuda, "deposit_and_sweep_ndt")},
+               "tsdf": {"k1_tsdf": (expand_cuda, "expand_keys"),
+                        "tsdf_visits": (tsdf_cuda, "tsdf_visits")}}
+    primary = {"occupancy": ("k2", live_keys), "ndt": ("k3", live_keys),
+               "tsdf": ("tsdf_visits", live_visits)}
+    calls = {}
+    for kind, named in kernels.items():
+        with contextlib.ExitStack() as stack:
+            seen = {name: stack.enter_context(every_call(mod, fn, _snapshots))
+                    for name, (mod, fn) in named.items()}
+            mappers[kind].integrate_rays(check_batch)
+        calls.update(busiest_shard_calls(seen, *primary[kind]))
+    torch.cuda.synchronize()
+    rows = sharded_kernel_checks(calls)
+    del calls, mappers
+    out["max_abs_err"] = {
+        "expand_keys": max(rows[f"expand_keys_{k}"]["max_abs_err"]
+                           for k in ("occupancy", "ndt", "tsdf")),
+        **{k: rows[k]["max_abs_err"] for k in ("deposit_and_sweep", "deposit_and_sweep_ndt",
+                                               "gather_ndt_flags", "tsdf_visits")}}
+
+    lz = out["launches"]
+    # Where each kernel runs on the sharded paths (K1 only on the rayflow
+    # wire: the segmented wire carries no candidate table).
+    on_path = {"expand_keys": ("rayflow_occupancy", "rayflow_ndt", "rayflow_tsdf"),
+               "deposit_and_sweep": ("rayflow_occupancy", "routed_occupancy", "a2a"),
+               "deposit_and_sweep_ndt": ("rayflow_ndt", "routed_ndt"),
+               "gather_ndt_flags": ("rayflow_ndt", "routed_ndt"),
+               "tsdf_visits": ("rayflow_tsdf", "routed_tsdf")}
+    out["sharded_launches"] = {k: {p: lz[p][k] for p in paths} for k, paths in on_path.items()}
+    out["launches_per_batch"] = {f"{w}_occupancy": {k: n / len(timed_b) for k, n in
+                                                     lz[f"{w}_occupancy"].items()}
+                                 for w in wires}
+    checks_ok = all(c["vs_single_device"]["members"] > 0 for c in out["checks"].values())
+    # Occupancy bit for bit in every comparison of the occupancy paths (NDT
+    # and TSDF floats within 1e-5: compare_maps raised otherwise).
+    occ_bits = all(r["bit_identical"] for name, c in out["checks"].items()
+                   if not name.endswith(("_ndt", "_tsdf")) for r in c.values())
+    launches_ok = all(n > 0 for per in out["sharded_launches"].values() for n in per.values())
+    k1_off = all(lz[f"routed_{k}"]["expand_keys"] == 0 for k in ("occupancy", "ndt", "tsdf"))
+    emit({"phase": "sharded", "metric": "sharded_rayflow_rays_per_sec",
+          "sharded_rayflow_rays_per_sec": out["rayflow_rays_per_sec"],
+          "sharded_rays_per_sec": out["routed_rays_per_sec"],
+          "batches": len(timed_b), "warmup": len(warm), "rays_per_batch": RAYS_PER_BATCH,
+          **{k: out[k] for k in ("n_shards", "devices", "device_names", "routed_rays_per_ray",
+                                 "routed_segments_per_segment", "last_balance",
+                                 "wire_bytes_per_ray", "launches_per_batch",
+                                 "sharded_launches", "a2a_routing_dropped", "evictions",
+                                 "checks", "max_abs_err")},
+          "dryrun": {k: v for k, v in out["dryrun"].items() if k != "devices"}})
+    if not (checks_ok and occ_bits and launches_ok and k1_off):
+        raise AssertionError(f"sharded phase failed: bits {occ_bits}, launches "
+                             f"{out['sharded_launches']}, routed K1 off {k1_off}")
+    return out
+
+
 #: The fused TSDF kernel, for its time alone.
 TSDF_VISITS_KERNELS = ("tsdf_visits_kernel",)
 #: Operations a record of the per-visit chain: the blocked in-row sum (10
@@ -4193,6 +4501,7 @@ def main(argv=None) -> int:
     clearing = timed("clearing_rays_per_sec", phase_clearing_bench, seg)
     wide = timed("wide_outdoor", phase_wide_outdoor)
     seg_nt = timed("segmented_ndt_tsdf", phase_segmented_ndt_tsdf)
+    sharded = timed("sharded", phase_sharded)
     p = timed("p", phase_p)
     apps = timed("apps", phase_apps)
     ohmpop_launches = {mode: apps["modes"][mode]["launches"] for mode in ("ndt", "ndt-tm", "tsdf")}
@@ -4204,12 +4513,21 @@ def main(argv=None) -> int:
 
     def row(name, source, replaces, path, err, **extra):
         """One kernel's entry: launches from its main path's counted run;
-        ms, plain_ms, bound and library_ms on that path's arguments."""
+        ms, plain_ms, bound and library_ms on that path's arguments; on the
+        kernels of the sharded paths, their launches there (by path, and
+        summed) and the largest difference on one shard's arguments."""
         lib = path.get("library_ms", {}).get(name)
+        shard = {}
+        if name in sharded["sharded_launches"]:
+            by_path = sharded["sharded_launches"][name]
+            shard = {"sharded_launches": sum(by_path.values()),
+                     "sharded_launches_by_path": by_path,
+                     "sharded_max_abs_err": sharded["max_abs_err"][name]}
+            err = max(err, shard["sharded_max_abs_err"])
         return {"name": name, "route": "cuda", "source": f"ohm_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": path["launches"][name],
                 "max_abs_err": err, "ms": path["ms"][name], "plain_ms": path["plain_ms"][name],
-                **path["bound"][name], "library_ms": lib, **extra}
+                **path["bound"][name], "library_ms": lib, **extra, **shard}
 
     # K1's main path here is the occupancy path's (keys only); it also runs
     # on the side-layer path with its traversal output, on the outdoor mean

@@ -35,6 +35,9 @@ Layer map (each module names its ``ohm_tpu`` counterpart):
   ops/probes_cuda    P-A probes  -> csrc/probes.cu  (scripts/probe_deposit.py)
   ops/slotgrid_cuda  P-B deposit -> csrc/slotgrid.cu (scripts/probe_deposit.py)
   scripts/probe_deposit  the deposit probe's entry point (scripts/probe_deposit.py)
+  parallel/          spatial sharding over a ShardMesh, one process driving a
+                     device a shard: ShardedRayMapper, ShardedRayFlowMapper, a2a
+                     routing, dryrun_multichip (ohm_tpu/parallel, __graft_entry__.py)
 """
 
 __version__ = "0.1.0"

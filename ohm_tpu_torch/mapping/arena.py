@@ -255,20 +255,51 @@ def arena_from_reference(arrays: dict, capacity: int, region_shift: int,
     and stats are copied too."""
     names = [n for n in LAYER_SPECS if n in arrays]
     arena = VoxelArena(capacity, region_shift, device, names, "inf")
+    _adopt_reference(arena, arrays, directory)
+    if directory is not None:
+        arena.batch_counter = int(directory.batch_counter)
+        arena.stats = dict(directory.stats)
+    return arena
+
+
+def sharded_arena_from_reference(state: dict, shards, region_shift: int, mesh):
+    """The port's ``parallel.mapper.ResidentShardedArena`` holding the state
+    of a JAX ``ResidentShardedArena`` of the occupancy mapper ("zero"
+    encoded, as both packages' are).
+
+    ``state`` maps layer names to the reference's [n_shards, N] arrays as
+    numpy (read through its ``addressable_shards`` so that -0.0 survives);
+    each shard's row is cut to ``capacity * V + 1`` voxels (the scatter tail
+    goes).  ``shards`` holds the reference's per-shard directories
+    (``_ShardDirectory``), whose slots, LRU state and region tables are
+    copied; the batch clock resumes at the latest batch any slot saw.
+    ``mesh`` is the port's ShardMesh of as many shards."""
+    from ohm_tpu_torch.parallel.mapper import ResidentShardedArena
+
+    names = [n for n in LAYER_SPECS if n in state]
+    arena = ResidentShardedArena(mesh, shards[0].capacity, region_shift, names)
+    for s, (port, ref) in enumerate(zip(arena.shards, shards)):
+        _adopt_reference(port, {name: np.asarray(state[name])[s] for name in names}, ref)
+    arena.batch_counter = max(int(np.max(ref.last_used)) for ref in shards)
+    return arena
+
+
+def _adopt_reference(arena: VoxelArena, arrays: dict, directory) -> None:
+    """Load a reference arena's layer arrays (cut to the port's layout, in
+    its representation) into ``arena``, and copy the slot directory of
+    ``directory`` (when given): slots, free list, LRU stamps, region
+    table."""
     n = arena.capacity * arena.voxels_per_region + 1
-    for name in names:
+    for name in arena.layer_names:
         data = arena._to_device(name, np.asarray(arrays[name])[:n])
-        arena.layers[name] = torch.from_numpy(np.array(data)).to(device)
+        arena.layers[name] = torch.from_numpy(np.array(data)).to(arena.device)
     if directory is not None:
         arena.slot_of = dict(directory.slot_of)
         arena.region_of = list(directory.region_of)
         arena.free_slots = list(directory.free_slots)
         arena.last_used = np.array(directory.last_used, dtype=np.int64)
-        arena.batch_counter = int(directory.batch_counter)
-        arena.stats = dict(directory.stats)
         for key, slot in arena.slot_of.items():
             arena.table.insert(key, slot)
-    return arena
 
 
 def _region_untouched(pulled: dict) -> bool:

@@ -61,8 +61,7 @@ from ohm_tpu_torch.mapping.batch import (
     prepare_rayflow, rayflow_wire, snake_perm)
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.ddawalk import walk_total_cap
-from ohm_tpu_torch.ops.integrate import (apply_records, apply_sample_layers, expand_records,
-                                         integrate_occupancy)
+from ohm_tpu_torch.ops.integrate import expand_records, integrate_decoded
 from ohm_tpu_torch.ops.wire import decode
 
 #: The side layers the occupancy mapper integrates.
@@ -459,18 +458,10 @@ class TorchRayMapper:
         return n_rays
 
     def _integrate_device(self, b: dict, cfg: IntegrateConfig) -> dict:
-        """Expand + sort + deposit of one decoded batch, then the sample
-        layers (the monolith under STOP_ON_FIRST_OCCUPIED); returns its
-        stats."""
-        if cfg.ray_flags & RayFlag.STOP_ON_FIRST_OCCUPIED:
-            return integrate_occupancy(self.arena.layers, b, cfg)
-        records, stats = expand_records(b, cfg)
-        layers = self.arena.layers
-        stats["touched"] = apply_records(layers["occupancy"], records, cfg,
-                                         traversal=layers.get("traversal"))
-        if cfg.with_mean or cfg.with_touch_time or cfg.with_incident:
-            apply_sample_layers(layers, records, b, cfg)
-        return stats
+        """One decoded batch into the arena (ops.integrate.integrate_decoded);
+        returns its stats.  The expand phase is this module's name for it,
+        which a test may wrap."""
+        return integrate_decoded(self.arena.layers, b, cfg, expand=expand_records)
 
     def _drain_stats(self) -> list[dict]:
         """Read the pending batches' stats back and sum _STAT_NAMES into

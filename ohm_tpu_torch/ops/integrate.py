@@ -159,7 +159,9 @@ def expand_records(b: dict, cfg: IntegrateConfig):
     Returns (records, stats).  records: 'key' i32[N] with key = flat << 1 |
     hit, 'end_flat' i32[B] and 'end_is_hit' bool[B] (the sample layers'
     input), and with the traversal layer 'trav' f32[N] beside 'key'.  stats
-    holds 0-dim tensors 'missed_updates', 'overflow', 'compaction_dropped'."""
+    holds 0-dim tensors 'missed_updates', 'applied_updates' (active records
+    whose slot resolved: with 'missed_updates', every active record),
+    'overflow', 'compaction_dropped'."""
     flags = cfg.ray_flags
     sentinel = cfg.sentinel
     with_trav = cfg.with_traversal
@@ -185,6 +187,10 @@ def expand_records(b: dict, cfg: IntegrateConfig):
     end_active = end_is_hit | end_is_miss
 
     walk_keys = walk_flat.reshape(-1) << 1
+    limit = sentinel << 1
+    # Active walk records whose slot resolved, the keys below the
+    # sentinel's, counted before the compaction.
+    n_valid = (walk_keys < limit).sum()
     if with_trav:
         walk_trav = walk_trav.reshape(-1)
     compaction_dropped = torch.zeros((), dtype=torch.int64, device=walk_keys.device)
@@ -193,8 +199,6 @@ def expand_records(b: dict, cfg: IntegrateConfig):
         # Sentinel keys sort to the back of each row, so cutting at group_cap
         # drops only padding when the host's cap covers the row.
         rows = group_rows(walk_keys, B, S, G)
-        limit = sentinel << 1
-        n_valid = (rows < limit).sum()
         if with_trav:
             # Equal keys carry different traversal payloads: a stable sort
             # keeps them in the reference's order (torch.sort on CUDA is
@@ -219,6 +223,7 @@ def expand_records(b: dict, cfg: IntegrateConfig):
         records["trav"] = torch.cat([walk_trav, end_trav])
     stats = {
         "missed_updates": walk_missed_n + (end_active & end_missed).sum(),
+        "applied_updates": n_valid + (end_keys != sentinel).sum(),
         "overflow": (aux["overflow"] & ray_valid).sum() + aux["truncated"],
         "compaction_dropped": compaction_dropped,
     }
@@ -341,10 +346,31 @@ def integrate_occupancy(layers: dict, b: dict, cfg: IntegrateConfig) -> dict:
         apply_sample_layers(layers, {"end_flat": end_flat, "end_is_hit": end_is_hit}, b, cfg)
     return {
         "missed_updates": (rec_valid & walk_missed).sum() + (end_active & end_missed).sum(),
+        "applied_updates": ((rec_valid & ~walk_missed).sum()
+                            + (end_active & ~end_missed).sum()),
         "overflow": (walk["overflow"] & ray_valid).sum() + walk["truncated"],
         "compaction_dropped": torch.zeros((), dtype=torch.int64, device=key.device),
         "touched": touched,
     }
+
+
+def integrate_decoded(layers: dict, b: dict, cfg: IntegrateConfig,
+                      expand=expand_records) -> dict:
+    """One decoded batch (ops.wire.decode) into the occupancy arena
+    ``layers`` (layer name -> tensor), in place: ``expand`` (expand_records;
+    a caller may pass a wrapper of it) + apply_records + apply_sample_layers,
+    or the monolith under STOP_ON_FIRST_OCCUPIED.  Returns the stats as
+    0-dim tensors: missed_updates, applied_updates, overflow,
+    compaction_dropped, touched.  TorchRayMapper and each shard of
+    ohm_tpu_torch.parallel call it."""
+    if cfg.ray_flags & RayFlag.STOP_ON_FIRST_OCCUPIED:
+        return integrate_occupancy(layers, b, cfg)
+    records, stats = expand(b, cfg)
+    stats["touched"] = apply_records(layers["occupancy"], records, cfg,
+                                     traversal=layers.get("traversal"))
+    if cfg.with_mean or cfg.with_touch_time or cfg.with_incident:
+        apply_sample_layers(layers, records, b, cfg)
+    return stats
 
 
 def _u32_to_f32(x: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,16 @@ def _view(part: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
     return part.view(dtype).reshape(shape)
 
 
+def end_frac_of(start_frac, start_abs, end_abs, length, direction, resolution: float):
+    """A ray's end point relative to its end voxel's origin, from its start
+    voxel, start fraction, direction and length: separate ops, each rounded
+    once, in the reference's order (integrate.py:_unpack_batch).  The
+    sharded rayflow step derives it again after routing
+    (parallel.rayflow), bit for bit."""
+    end_frac = start_frac + (start_abs - end_abs).to(torch.float32) * f32(resolution)
+    return end_frac + length[:, None] * direction
+
+
 def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
     """Decode a rayflow wire (uint8[L] on any device) into per-ray tensors."""
     if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
@@ -101,9 +111,7 @@ def unpack_batch(buf: torch.Tensor, cfg: IntegrateConfig) -> dict:
         start_frac = floats[:, 0:3]
     start_abs = a16[:, 0:3] + bbox_min_vox[None, :]
     end_abs = a16[:, 3:6] + bbox_min_vox[None, :]
-    # Separate ops, each rounded once, in the reference's order.
-    end_frac = start_frac + (start_abs - end_abs).to(torch.float32) * f32(cfg.resolution)
-    end_frac = end_frac + length[:, None] * direction
+    end_frac = end_frac_of(start_frac, start_abs, end_abs, length, direction, cfg.resolution)
     ray_order = (hi[:, 0] >> 2) | (hi[:, 1] << 3) | (hi[:, 2] << 8) | (hi[:, 3] << 13)
     batch = {
         "start_abs": start_abs,

@@ -23,7 +23,8 @@ and TorchRayMapper with the side layers on the card must agree with
 themselves on the CPU and give the same bits on every run, and so must the
 queries (RaysQuery, LineKeysQuery, ClearanceProcess); so must TorchRayMapper on
 the segmented wire, its STOP_ON_FIRST_OCCUPIED monolith included, with K2
-launched and K1 not.
+launched and K1 not; and ShardedRayFlowMapper on four shards of the card,
+bit for bit TorchRayMapper's occupancy, with K1 and K2 on every shard.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -840,3 +841,37 @@ def test_ohmpop_from_laz_on_card_matches_cpu(cuda, tmp_path):
         same.append(a[written] == b[written])
     same = np.concatenate(same)
     assert same.size > 1000 and same.mean() >= 0.999
+
+
+def test_sharded_rayflow_mapper_on_card_matches_single_device(cuda):
+    """ShardedRayFlowMapper on four shards of the one card (bench.py's box,
+    0.1 m, 4 x 2048-ray batches): occupancy bit-identical to TorchRayMapper
+    on the card and to a second sharded card run; K1 and K2 launched on
+    every shard."""
+    from ohm_tpu_torch.ops import deposit_cuda, expand_cuda
+    from ohm_tpu_torch.parallel import ShardedRayFlowMapper, ShardMesh
+
+    rng = np.random.default_rng(2024)
+    batches = [_box_rays(2048, rng) for _ in range(4)]
+    occ = []
+    for sharded in (True, True, False):
+        expand_cuda.expand_keys.launches = deposit_cuda.deposit_and_sweep.launches = 0
+        m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
+        if sharded:
+            mapper = ShardedRayFlowMapper(m, ShardMesh.repeat(cuda, 4), capacity=512,
+                                          validate=True)
+        else:
+            mapper = TorchRayMapper(m, capacity=512, validate=True, device=cuda)
+        for rays in batches:
+            mapper.integrate_rays(rays)
+        mapper.sync_voxels()
+        if sharded:
+            assert expand_cuda.expand_keys.launches == 4 * len(batches)
+            assert deposit_cuda.deposit_and_sweep.launches == 4 * len(batches)
+            assert mapper.stats["routing_dropped"] == 0
+        oi = m.layer_index("occupancy")
+        occ.append({k: c.layers[oi]["occupancy"].view(np.uint32).copy()
+                    for k, c in m.chunks.items()})
+    assert occ[0].keys() == occ[1].keys() == occ[2].keys() and len(occ[0]) > 0
+    for k in occ[0]:
+        assert np.array_equal(occ[0][k], occ[1][k]) and np.array_equal(occ[0][k], occ[2][k])

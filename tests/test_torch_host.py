@@ -17,6 +17,8 @@
               voxel structs and clear bytes
   native      the copied rayflow pass gives the same wire bytes as
               ohm_tpu.native on two scenes
+  parallel    region_owner and the small host helpers of ohm_tpu/parallel
+              equal their originals' text
   oracle      the copied f64 oracles leave chunk arrays bit-identical to
               ohm_tpu.oracle's for occupancy, NDT-OM, NDT-TM, TSDF and the
               secondary samples"""
@@ -189,6 +191,22 @@ def test_native_loader_entry_is_a_copy(name):
 
     assert (inspect.getsource(getattr(ref_native, name))
             == inspect.getsource(getattr(port_native, name)))
+
+
+#: Host functions of ohm_tpu/parallel that ohm_tpu_torch/parallel copies
+#: verbatim: (module, name).
+PARALLEL_COPIES = [("sharded", "region_owner"), ("sharded", "_next_pow2"),
+                   ("sharded", "_subset_prepared"), ("rayflow", "_pow2")]
+
+
+@pytest.mark.parametrize("module,name", PARALLEL_COPIES)
+def test_parallel_host_function_is_a_copy(module, name):
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"ohm_tpu.parallel.{module}")
+    port = importlib.import_module(f"ohm_tpu_torch.parallel.{module}")
+    assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(ref, name))
 
 
 def _chunk_bytes(m) -> dict:

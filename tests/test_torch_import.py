@@ -1,7 +1,8 @@
 """The PyTorch port's boundaries: it imports and integrates without JAX and
 without any module of the JAX package (on the rayflow and the segmented
-wire; its apps from a .laz), its default device is CUDA and never quietly
-the CPU, and its mappers take any map layout, as the reference's do."""
+wire; its apps from a .laz; its sharded mappers), its default device is CUDA
+and never quietly the CPU, and its mappers take any map layout, as the
+reference's do."""
 
 import ctypes
 import os
@@ -167,6 +168,49 @@ def test_apps_import_and_run_with_jax_blocked():
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+_PARALLEL_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+import ohm_tpu_torch.parallel as par
+from ohm_tpu_torch.core.map import OccupancyMap
+rng = np.random.default_rng(1)
+rays = rng.uniform(-6, 6, (2 * 256, 3))
+rays[0::2] *= 0.05
+mesh = par.ShardMesh.repeat("cpu", 2)
+for cls in (par.ShardedRayMapper, par.ShardedRayFlowMapper):
+    mapper = cls(OccupancyMap(resolution=0.25), mesh, capacity=32, validate=True)
+    assert mapper.integrate_rays(rays) == 256
+    mapper.sync_voxels()
+    assert len(mapper.map.chunks) > 0
+print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu."))
+             or n in ("ohm_tpu", "triton")))
+"""
+
+
+def test_parallel_imports_and_steps_with_jax_blocked():
+    """ohm_tpu_torch.parallel imports, and a sharded step runs on both wires
+    on the CPU, with JAX blocked and no module of ohm_tpu loaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_SCRIPT], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_parallel_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from ohm_tpu_torch.parallel import ShardMesh, dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardMesh.repeat()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardMesh.over_cards(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(4)
+    assert ShardMesh.repeat("cpu", 3).devices == [torch.device("cpu")] * 3
 
 
 def test_no_source_of_the_port_imports_jax():
