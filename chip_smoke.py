@@ -38,11 +38,16 @@ exit code is not 0 and no result line is printed:
                same mapper on the CPU
   occupancy_integrate_rays_per_sec
                bench.py's configuration (box scene, seed 2024, 8192-ray
-               batches, 40 timed after 4 warm-up, 512-slot arena), timed
-               with synchronous integrate_rays; then host prep, device time
-               per batch and per stage, each kernel beside its plain version,
-               and (the "profile" line) torch.profiler's device time by
-               kernel and the device's idle share over 8 batches
+               batches, a 512-slot arena) timed by bench.py's loop
+               (ohm_tpu_torch.bench's timed_integration: the caps primed,
+               4 synchronous warm-ups, a pass through the worker, then the
+               timed pass through it; 40 batches), the kernels' launches
+               counted over it; beside it (sync_rays_per_sec) the same
+               batches through synchronous integrate_rays; then host prep,
+               device time per batch and per stage,
+               each kernel beside its plain version, and (the "profile"
+               line) torch.profiler's device time by kernel and the
+               device's idle share over 8 batches
   k1_trav      the expand kernel's traversal output (the traversal layer's
                with_trav), alone and beside the voxel planes, against its
                plain version on the box, corner and miss scenes: keys,
@@ -70,10 +75,13 @@ exit code is not 0 and no result line is printed:
                its plain version bit for bit
   occupancy_mean_outdoor_rays_per_sec
                scripts/bench_modes.py config 2: occupancy + voxel mean at
-               0.2 m, a 1024-slot arena, 12 synthetic outdoor 8192-ray
-               batches (rng seed 7), warmed up and timed through
-               integrate_rays_async + flush as its timed_integration does;
-               host prep, device time, host syncs, launches, a profile line
+               0.2 m, a 1024-slot arena, 12 outdoor 8192-ray batches (rng
+               seed 7) written to a .laz and read back through
+               SlamCloudLoader, timed by timed_integration (6 warm-up),
+               sync_rays_per_sec beside it; host prep, device time, host
+               syncs, launches, a profile line; the "outdoor_mean_kernel_checks"
+               line holds K1 and K2 to their plain versions on a batch the
+               worker thread dispatched
   k1_vox       the expand kernel's voxel planes (the NDT path's with_vox)
                against the plain walk's voxels on the box, corner and miss
                scenes, on every lane whose key is not the sentinel, bit for
@@ -116,8 +124,9 @@ exit code is not 0 and no result line is printed:
                and bit-identical between two card runs
   ndt_om_rays_per_sec
                scripts/bench_modes.py config 3 on the port: box scene, 0.2 m
-               voxels, 1024-slot arena, 8192-ray batches, 40 timed after 6
-               warm-up; host prep, device time, each kernel beside its plain
+               voxels, 1024-slot arena, 12 8192-ray batches timed by
+               timed_integration (6 warm-up), sync_rays_per_sec beside it;
+               host prep, device time, each kernel beside its plain
                version, the launch counts, and a profile line; before it
                (the "ndt_om_kernel_checks" line) K1 with voxel planes, the
                fused flag gather (and K4 on the flag plane) and K3 on the
@@ -129,10 +138,13 @@ exit code is not 0 and no result line is printed:
                launches on the path are counted and must be 0
   ndt_tm_integrate_rays_per_sec
                the integrate part of config 5: one 1,048,576-ray box frame
-               (half extents 15, 15, 7), intensities uniform in [0, 1),
-               miss_k 32768, synchronous 8192-ray batches; then K3 on the
-               arguments one more batch gave it (the sparse delta), against
-               its plain version and timed
+               (half extents 15, 15, 7), intensities uniform in [0, 1) and
+               timestamps, miss_k 32768, 8192-ray batches through the worker
+               after 6 warm-up batches (bench_modes' integrate_frame); beside
+               it the frame through synchronous integrate_rays on a fresh
+               map (sync_rays_per_sec); then K3 on the arguments one more
+               batch gave it (the sparse delta), against its plain version
+               and timed
   ndt_layers_hardware_differential
                TorchNdtMap with the traversal, touch-time and incident-normal
                layers on ndt_hardware_differential's scene with a timestamp
@@ -170,9 +182,11 @@ exit code is not 0 and no result line is printed:
                within rtol 1e-5
   ndt_tm_pipeline_frame_sec
                scripts/bench_modes.py config 5's row: the NDT-TM frame's
-               integrate seconds (ndt_tm_integrate_rays_per_sec) + its warm
-               clearance (queries) + the layered heightmap (LAYERED_FILL,
-               min clearance 0.5) of its map, each printed
+               integrate seconds through the worker
+               (ndt_tm_integrate_rays_per_sec) + its warm clearance
+               (queries) + the layered heightmap (LAYERED_FILL, min
+               clearance 0.5) of its map, each printed, and the
+               synchronous frame's seconds (sync_integrate_sec)
   k5_gather_f32
                the f32 seed-gather kernel against its plain version on a
                sorted stream of ~1.2M ids with sentinel padding over two
@@ -201,10 +215,11 @@ exit code is not 0 and no result line is printed:
   tsdf_rays_per_sec
                scripts/bench_modes.py config 4 on the port: box scene, 0.1 m
                voxels, a 1024-slot arena of occupancy and the two TSDF planes,
-               default TsdfOptions, 12 timed 8192-ray batches after 6 warm-up;
+               default TsdfOptions, 12 8192-ray batches timed by
+               timed_integration (6 warm-up), sync_rays_per_sec beside it;
                host prep, device time, each kernel beside its plain version,
                the launch counts, a profile line and the peak allocation;
-               before it (the "tsdf_kernel_checks" line) K1 with voxel planes
+               after it (the "tsdf_kernel_checks" line) K1 with voxel planes
                and the fused per-visit kernel on the arguments this path
                gave them in one batch, and K5 and K6 on arguments derived
                from the fused call's (K5 on its ids and planes, K6 on the
@@ -323,6 +338,12 @@ Each phase's seconds follow it on a "phase_seconds" line.
                config 4's occupancy map (the box scene, 0.1 m, 1024 slots, 4
                batches of 8192) built on the card and on the CPU: layers
                bit-identical, layered_heightmap_build_sec and source_voxels
+  port_bench   the two commands a benchmark's cells run, each in its own
+               process: python -m ohm_tpu_torch.bench and python -m
+               ohm_tpu_torch.scripts.bench_modes --quick; each must exit 0
+               and print all its lines (the reference's keys plus backend
+               "cuda" and the card's name), the differential ok, and
+               bench_modes' --out file hold its rows
 
 Then one JSON line of the kernels (each with its bound: the bytes it must
 move over 3.35 TB/s or its operations over 67 TFLOP/s (bf16 matrix work
@@ -358,6 +379,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ohm_tpu_torch import TorchNdtMap, TorchRayMapper, TorchTsdfMap, native
 from ohm_tpu_torch.app import harness as app_harness
+from ohm_tpu_torch.bench import (box_scene_rays, device_and_host_ms, emit, fenced_seconds,
+                                 timed_integration, without_gc_pauses)
 from ohm_tpu_torch.app import ohm2ply, ohmcmp, ohmheightmap, ohmhm2img, ohminfo, ohmpop, ohmquery
 from ohm_tpu_torch.core import subvoxel
 from ohm_tpu_torch.core.layout import (CLEARANCE_LAYER, COVARIANCE_LAYER, HIT_MISS_COUNT_LAYER,
@@ -370,7 +393,6 @@ from ohm_tpu_torch.core.raypattern import ClearingPattern
 from ohm_tpu_torch.heightmap import Heightmap, HeightmapMode
 from ohm_tpu_torch.heightmap.heightmap import HEIGHTMAP_LAYER
 from ohm_tpu_torch.io import load as load_ohm
-from ohm_tpu_torch.io.las import write_laz
 from ohm_tpu_torch.io.slam import SlamCloudLoader
 from ohm_tpu_torch.mapping.batch import prepare_ray_batch, prepare_rayflow
 from ohm_tpu_torch.oracle.ndt import NdtParams, RayMapperNdt
@@ -390,6 +412,8 @@ from ohm_tpu_torch.parallel.dryrun import compare_maps, map_members
 from ohm_tpu_torch.query import ClearanceProcess, LineKeysQuery, RaysQuery
 from ohm_tpu_torch.query.rays_query import rays_query_device
 from ohm_tpu_torch.scripts import probe_deposit
+from ohm_tpu_torch.scripts.bench_modes import (integrate_frame, laz_round_trip, outdoor_rays,
+                                               write_laz_cloud)
 from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, PROBE_LIBRARY_CALLS,
                                    TSDF_SPECIALS, TSDF_VISIT_STREAMS, deposit_edge_stream,
                                    dispatched_ops,
@@ -409,6 +433,7 @@ GATE = {"tolerance": 1e-4, "allowed_ratio": 1e-4, "worst_bound": 2e-3}  # bench.
 # scripts/bench_modes.py configs 3 and 5 (NDT-OM, NDT-TM integrate).
 NDT_RESOLUTION = 0.2
 NDT_CAPACITY = 1024
+NDT_BATCHES = 12
 NDT_WARMUP = 6
 TM_FRAME_RAYS = 1 << 20
 TM_HALF = (15.0, 15.0, 7.0)
@@ -464,21 +489,6 @@ SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
 
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
-def box_scene_rays(n, rng, half=(10.0, 10.0, 5.0), sensor=(0.0, 0.0, 0.0)):
-    """Sensor at the centre of a box room, rays to its walls (bench.py)."""
-    dirs = rng.normal(size=(n, 3))
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    t = np.min(np.where(dirs != 0, np.asarray(half) / np.abs(dirs), np.inf), axis=1)
-    rays = np.empty((2 * n, 3), dtype=np.float64)
-    rays[0::2] = sensor
-    rays[1::2] = np.asarray(sensor) + dirs * t[:, None]
-    return rays
-
-
 def corner_scene_rays(n, rng, spread=5.0):
     """Random short rays plus exact-corner and axis-aligned rays, which hit
     the walk's ties (tests/test_expand_pallas.py)."""
@@ -493,38 +503,6 @@ def corner_scene_rays(n, rng, spread=5.0):
     rays[0::2] = origins
     rays[1::2] = origins + dirs * lengths[:, None]
     return rays
-
-
-def outdoor_rays(n, rng, extent=40.0, sensor_height=1.5):
-    """An outdoor-like lidar frame: a ground plane and the extent's ring from
-    a sensor 1.5 m up, mostly level and downward (scripts/bench_modes.py
-    outdoor_rays, config 2)."""
-    az = rng.uniform(0, 2 * np.pi, n)
-    el = rng.uniform(-0.35, 0.15, n)
-    dirs = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)], axis=1)
-    sensor = np.array([0.0, 0.0, sensor_height])
-    t_ground = np.where(dirs[:, 2] < -1e-3, -sensor_height / dirs[:, 2], np.inf)
-    t = np.minimum(t_ground, extent / np.maximum(np.linalg.norm(dirs[:, :2], axis=1), 1e-6))
-    t = np.clip(t, 0.5, extent)
-    rays = np.empty((2 * n, 3))
-    rays[0::2] = sensor
-    rays[1::2] = sensor + dirs * t[:, None]
-    return rays
-
-
-@contextlib.contextmanager
-def without_gc_pauses():
-    """A timed region free of the cyclic collector's pauses, as timeit's:
-    collect first, then keep the collector off until the region ends.  A
-    full collection over this script's heap (its oracle maps and batches,
-    300k-600k tracked objects) takes 0.2-0.8 s on the card's host, and one
-    that lands inside a 12-batch loop cuts that loop's rays/s by 3-4x."""
-    gc.collect()
-    gc.disable()
-    try:
-        yield
-    finally:
-        gc.enable()
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -1334,26 +1312,28 @@ def profile_main_path(mapper, batches, path: str = "occupancy", intens=None,
           "top_kernels": rows[:14]})
 
 
+def sync_rays_per_sec(mapper, batches) -> float:
+    """Rays/s of ``batches`` through synchronous integrate_rays, fenced by
+    a synchronize, with the collector off, beside the reference's loop
+    (``timed_integration``) on the same warm mapper: the worker's gain, if
+    any, is their ratio."""
+    torch.cuda.synchronize()
+    elapsed = fenced_seconds(lambda: [mapper.integrate_rays(b) for b in batches], mapper.device)
+    return sum(np.asarray(b).reshape(-1, 3).shape[0] // 2 for b in batches) / elapsed
+
+
 def phase_bench(k1: dict) -> dict:
     rng = np.random.default_rng(SEED)
     m = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
     mapper = TorchRayMapper(m, capacity=CAPACITY, device="cuda")
     batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(N_BATCHES)]
-    mapper.prime_caps(batches)
-    for i in range(WARMUP):
-        mapper.integrate_rays(batches[i % N_BATCHES])
-    torch.cuda.synchronize()
 
-    # The main path, counted: every count is 0 just before it.
+    # The main path, counted: every count is 0 just before it.  bench.py's
+    # timed region (ohm_tpu_torch.bench), its warm-up included.
     expand_cuda.expand_keys.launches = 0
     deposit_cuda.deposit_and_sweep.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    with without_gc_pauses():
-        t0 = time.perf_counter()
-        for b in batches:
-            mapper.integrate_rays(b)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+    rays_per_sec = timed_integration(mapper, batches, warmup=WARMUP)
     peak = torch.cuda.max_memory_allocated()
     launches = {"expand_keys": expand_cuda.expand_keys.launches,
                 "deposit_and_sweep": deposit_cuda.deposit_and_sweep.launches}
@@ -1363,6 +1343,7 @@ def phase_bench(k1: dict) -> dict:
             raise AssertionError(f"main path reported {name}={stats[name]}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    sync_rps = sync_rays_per_sec(mapper, batches)
 
     # Host prep alone, the device path on resident wires, then the same
     # with events around each stage.
@@ -1407,9 +1388,9 @@ def phase_bench(k1: dict) -> dict:
 
     profile_main_path(mapper, batches[:8])
 
-    rays_per_sec = RAYS_PER_BATCH * N_BATCHES / elapsed
     emit({"metric": "occupancy_integrate_rays_per_sec", "value": rays_per_sec,
-          "unit": "rays/s", "batches": N_BATCHES, "rays_per_batch": RAYS_PER_BATCH,
+          "unit": "rays/s", "sync_rays_per_sec": sync_rps, "batches": N_BATCHES,
+          "warmup": WARMUP, "rays_per_batch": RAYS_PER_BATCH,
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "stage_ms_per_batch": stage, "keys_per_batch": int(records["key"].numel()),
           "wire_bytes_per_ray": setups[0][0].nbytes / RAYS_PER_BATCH,
@@ -1627,26 +1608,6 @@ def time_k2_call(k2_call) -> dict:
                            2 * key_s.numel() + 15 * touched)}
 
 
-def device_and_host_ms(mapper, batches, stamps=None):
-    """Host prep alone, then the device path on resident wires (host clock
-    to a synchronize), per batch; returns (host_prep_ms, device_ms, wires,
-    setups).  The arena already holds every region of the batches."""
-    stamps = stamps or [None] * len(batches)
-    with without_gc_pauses():
-        t0 = time.perf_counter()
-        setups = [mapper._rayflow_setup_host(b, ts, None, 0) for b, ts in zip(batches, stamps)]
-        host_prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
-    wires = [torch.from_numpy(w).cuda() for w, _, _ in setups]
-    torch.cuda.synchronize()
-    with without_gc_pauses():
-        t0 = time.perf_counter()
-        for w, (_, cfg, n) in zip(wires, setups):
-            mapper._dispatch(w, cfg, n)
-        torch.cuda.synchronize()
-        device_ms = (time.perf_counter() - t0) / len(batches) * 1e3
-    return host_prep_ms, device_ms, wires, setups
-
-
 def phase_layers_bench() -> dict:
     rng = np.random.default_rng(SEED)
     torch.cuda.reset_peak_memory_stats()
@@ -1764,17 +1725,30 @@ def phase_layers_bench() -> dict:
 
 
 def phase_outdoor_mean_bench() -> dict:
+    # scripts/bench_modes.py config 2: the batches through a .laz and back.
     rng = np.random.default_rng(OUTDOOR_SEED)
     m = OccupancyMap(resolution=OUTDOOR_RESOLUTION, flags=MapFlag.VOXEL_MEAN)
     mapper = TorchRayMapper(m, capacity=OUTDOOR_CAPACITY, device="cuda")
-    batches = [outdoor_rays(RAYS_PER_BATCH, rng) for _ in range(OUTDOOR_BATCHES)]
-    mapper.prime_caps(batches)
-    for rays in batches[:OUTDOOR_WARMUP]:
-        mapper.integrate_rays(rays)
-    for rays in batches:  # warm the worker's own path too (timed_integration)
-        mapper.integrate_rays_async(rays)
-    mapper.flush()
-    torch.cuda.synchronize()
+    synthetic = [outdoor_rays(RAYS_PER_BATCH, rng) for _ in range(OUTDOOR_BATCHES)]
+    batches = laz_round_trip(synthetic, RAYS_PER_BATCH)
+
+    # The reference's loop (timed_integration), counted: every count is 0
+    # just before it.
+    counters = {"expand_keys": expand_cuda.expand_keys,
+                "deposit_and_sweep": deposit_cuda.deposit_and_sweep}
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rays_per_sec = timed_integration(mapper, batches, warmup=OUTDOOR_WARMUP)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(counters)
+    stats = mapper.stats
+    for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
+        if stats[name]:
+            raise AssertionError(f"outdoor mean path reported {name}={stats[name]}")
+    if min(launches.values()) <= 0 or launches["expand_keys"] != stats["batches"]:
+        raise AssertionError(f"outdoor mean path launches {launches} over "
+                             f"{stats['batches']} batches")
+    sync_rps = sync_rays_per_sec(mapper, batches)
 
     # One batch through the worker, its kernel calls captured and each held
     # against its plain version on the arguments this path gave it.
@@ -1786,31 +1760,6 @@ def phase_outdoor_mean_bench() -> dict:
     errs = check_layers_path_calls(k1_args[0], k2_args[0], "outdoor_mean_kernel_checks")
     del k1_args, k2_args
 
-    # The asynchronous path, counted: every count is 0 just before it.
-    counters = {"expand_keys": expand_cuda.expand_keys,
-                "deposit_and_sweep": deposit_cuda.deposit_and_sweep}
-    for fn in counters.values():
-        fn.launches = 0
-    batches_before = mapper.stats["batches"]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with without_gc_pauses():
-        t0 = time.perf_counter()
-        for rays in batches:
-            mapper.integrate_rays_async(rays)
-        mapper.flush()
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    stats = mapper.stats
-    for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
-        if stats[name]:
-            raise AssertionError(f"outdoor mean path reported {name}={stats[name]}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the outdoor mean path never launched: {launches}")
-    dispatched = stats["batches"] - batches_before
-
     host_prep_ms, device_ms, _, setups = device_and_host_ms(mapper, batches)
     syncs = count_host_syncs(lambda: mapper.integrate_rays(batches[0]))
     mapper._drain_stats()
@@ -1821,12 +1770,12 @@ def phase_outdoor_mean_bench() -> dict:
     observed = sum(int(np.isfinite(v).sum()) for v in lay["occupancy"].values())
     if hits == 0 or observed == 0:
         raise AssertionError(f"outdoor mean map: hits={hits} observed={observed}")
-    rays_per_sec = RAYS_PER_BATCH * OUTDOOR_BATCHES / elapsed
     emit({"metric": "occupancy_mean_outdoor_rays_per_sec", "value": rays_per_sec,
-          "unit": "rays/s", "batches": OUTDOOR_BATCHES, "dispatched_batches": dispatched,
+          "unit": "rays/s", "sync_rays_per_sec": sync_rps, "batches": len(batches),
+          "dispatched_batches": stats["batches"],
           "warmup": OUTDOOR_WARMUP, "rays_per_batch": RAYS_PER_BATCH,
           "resolution": OUTDOOR_RESOLUTION, "capacity": OUTDOOR_CAPACITY,
-          "source": "synthetic outdoor_rays (no .laz round trip)",
+          "source": "laz", "laz_rays": sum(len(b) // 2 for b in batches),
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "host_syncs_per_batch": syncs, "launches": launches,
           "max_memory_allocated_bytes": peak,
@@ -1876,35 +1825,21 @@ def phase_ndt_om_bench() -> dict:
     rng = np.random.default_rng(SEED)
     m = OccupancyMap(resolution=NDT_RESOLUTION, flags=MapFlag.NONE)
     mapper = TorchNdtMap(m, capacity=NDT_CAPACITY, device="cuda")
-    batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(N_BATCHES)]
-    mapper.prime_caps(batches)
-    for i in range(NDT_WARMUP):
-        mapper.integrate_rays(batches[i % N_BATCHES])
-    # Reading the stats drains them: miss_k, sized on the fourth batch,
-    # escalates here if the warm-up overflowed it.
-    overflow_before = mapper.stats["ndt_overflow"]
-    torch.cuda.synchronize()
+    batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(NDT_BATCHES)]
 
-    # The NDT-OM path, counted: every count is 0 just before it.  K4's
-    # count too: the fused flag gather took its place on this path, so its
-    # count must stay 0.
+    # The NDT-OM path through the reference's loop (timed_integration),
+    # counted: every count is 0 just before it.  K4's count too: the fused
+    # flag gather took its place on this path, so its count must stay 0.
     counters = {"expand_keys": expand_cuda.expand_keys,
                 "gather_ndt_flags": gather_cuda.gather_ndt_flags,
                 "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt,
                 "gather_plane": gather_cuda.gather_plane}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
-    with without_gc_pauses():
-        t0 = time.perf_counter()
-        for b in batches:
-            mapper.integrate_rays(b)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+    rays_per_sec = timed_integration(mapper, batches, warmup=NDT_WARMUP)
     peak = torch.cuda.max_memory_allocated()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     stats = mapper.stats
-    timed_overflow = stats["ndt_overflow"] - overflow_before
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
         if stats[name]:
             raise AssertionError(f"NDT-OM path reported {name}={stats[name]}")
@@ -1912,6 +1847,13 @@ def phase_ndt_om_bench() -> dict:
         raise AssertionError(f"a kernel of the NDT-OM path never launched: {launches}")
     if launches["gather_plane"]:
         raise AssertionError(f"the NDT-OM path built the flag plane and ran K4: {launches}")
+    # Reading the stats drained them: miss_k, sized on the fourth batch,
+    # escalated in the warm-up if it overflowed there; the synchronous pass
+    # shows whether the sized miss_k holds.
+    overflow_before = stats["ndt_overflow"]
+    sync_rps = sync_rays_per_sec(mapper, batches)
+    stats = mapper.stats
+    timed_overflow = stats["ndt_overflow"] - overflow_before
 
     host_prep_ms, device_ms, wires, setups = device_and_host_ms(mapper, batches)
 
@@ -2001,9 +1943,9 @@ def phase_ndt_om_bench() -> dict:
     mapper._drain_stats()
 
     profile_main_path(mapper, batches[:8], path="ndt_om")
-    rays_per_sec = RAYS_PER_BATCH * N_BATCHES / elapsed
     emit({"metric": "ndt_om_rays_per_sec", "value": rays_per_sec, "unit": "rays/s",
-          "batches": N_BATCHES, "warmup": NDT_WARMUP, "rays_per_batch": RAYS_PER_BATCH,
+          "sync_rays_per_sec": sync_rps, "batches": NDT_BATCHES, "warmup": NDT_WARMUP,
+          "rays_per_batch": RAYS_PER_BATCH,
           "resolution": NDT_RESOLUTION, "capacity": NDT_CAPACITY, "miss_k": mapper.miss_k,
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "walk_keys_per_batch": walk.numel(), "k_stream": delta[0].numel(),
@@ -2107,23 +2049,33 @@ def check_ndt_kernel_calls(kf_call, k3_call) -> dict:
                                       "bit_identical": bool(k3_ok)}}
 
 
-def phase_ndt_tm_frame() -> tuple[TorchNdtMap, float]:
+def phase_ndt_tm_frame() -> tuple[TorchNdtMap, float, float]:
     rng = np.random.default_rng(SEED)
-    m = OccupancyMap(resolution=NDT_RESOLUTION, flags=MapFlag.NONE)
-    mapper = TorchNdtMap(m, params=NdtParams(ndt_tm=True), capacity=NDT_CAPACITY,
-                         miss_k=TM_MISS_K, device="cuda")
     frame = box_scene_rays(TM_FRAME_RAYS, rng, half=TM_HALF)
     intens = rng.uniform(0.0, 1.0, TM_FRAME_RAYS).astype(np.float32)
+    times = np.linspace(0.0, 0.1, TM_FRAME_RAYS)
+
+    def tm_mapper():
+        return TorchNdtMap(OccupancyMap(resolution=NDT_RESOLUTION, flags=MapFlag.NONE),
+                           params=NdtParams(ndt_tm=True), capacity=NDT_CAPACITY,
+                           miss_k=TM_MISS_K, device="cuda")
+
+    # The frame through synchronous integrate_rays on a fresh map; then
+    # through the worker on another (scripts/bench_modes.py config 5's
+    # loop, integrate_frame).
     step = 2 * RAYS_PER_BATCH
+    sync_mapper = tm_mapper()
     torch.cuda.synchronize()
+    sync_seconds = fenced_seconds(lambda: [
+        sync_mapper.integrate_rays(frame[i:i + step],
+                                   intensities=intens[i // 2:i // 2 + RAYS_PER_BATCH],
+                                   timestamps=times[i // 2:i // 2 + RAYS_PER_BATCH])
+        for i in range(0, frame.shape[0], step)], sync_mapper.device)
+    del sync_mapper
+    mapper = tm_mapper()
+    m = mapper.map
     torch.cuda.reset_peak_memory_stats()
-    with without_gc_pauses():
-        t0 = time.perf_counter()
-        for i in range(0, frame.shape[0], step):
-            mapper.integrate_rays(frame[i:i + step],
-                                  intensities=intens[i // 2:i // 2 + RAYS_PER_BATCH])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+    seconds = integrate_frame(mapper, frame, intens, times, RAYS_PER_BATCH, warmup=NDT_WARMUP)
     peak = torch.cuda.max_memory_allocated()
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped"):
@@ -2157,12 +2109,14 @@ def phase_ndt_tm_frame() -> tuple[TorchNdtMap, float]:
         lambda: deposit_cuda.deposit_and_sweep_ndt(occ_b, walk, end, delta, dcfg, **kw),
         K3_KERNELS)
     emit({"metric": "ndt_tm_integrate_rays_per_sec", "value": TM_FRAME_RAYS / seconds,
-          "unit": "rays/s", "seconds": seconds, "rays": TM_FRAME_RAYS,
+          "unit": "rays/s", "seconds": seconds, "warmup": NDT_WARMUP,
+          "sync_rays_per_sec": TM_FRAME_RAYS / sync_seconds, "sync_seconds": sync_seconds,
+          "rays": TM_FRAME_RAYS,
           "batches": TM_FRAME_RAYS // RAYS_PER_BATCH, "miss_k": mapper.miss_k,
           "sync_voxels_s": sync_s, "observed_voxels": observed,
           "max_memory_allocated_bytes": peak, "deposit_and_sweep_ndt": k3_row,
           "stats": {k: stats[k] for k in ("ndt_overflow", "ndt_flagged", "missed_updates")}})
-    return mapper, seconds
+    return mapper, seconds, sync_seconds
 
 
 NDT_SIDE_MEMBERS = {TRAVERSAL_LAYER: "traversal", TOUCH_TIME_LAYER: "touch",
@@ -2915,36 +2869,17 @@ def phase_tsdf_bench() -> dict:
     m = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
     mapper = TorchTsdfMap(m, capacity=TSDF_CAPACITY, device="cuda")
     batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(TSDF_BATCHES)]
-    mapper.prime_caps(batches)
-    for b in batches[:TSDF_WARMUP]:
-        mapper.integrate_rays(b)
 
-    # One more batch, its kernel calls captured and each held against its
-    # plain version; then the same arguments timed.
-    with first_call_args(expand_cuda, "expand_keys") as k1_args, \
-            first_call_args(tsdf_cuda, "tsdf_visits") as visits_args:
-        mapper.integrate_rays(batches[TSDF_WARMUP])
-    torch.cuda.synchronize()
-    errs = check_tsdf_path_calls(k1_args[0], visits_args[0])
-    calls = time_tsdf_path_calls(k1_args[0], visits_args[0])
-    del k1_args, visits_args
-    torch.cuda.synchronize()
-
-    # The TSDF path, counted: every count is 0 just before it.  The fused
-    # kernel took K5's and K6's place there: theirs must stay 0.
+    # The TSDF path through the reference's loop (timed_integration),
+    # counted: every count is 0 just before it.  The fused kernel took K5's
+    # and K6's place there: theirs must stay 0.
     counters = {"expand_keys": expand_cuda.expand_keys,
                 "tsdf_visits": tsdf_cuda.tsdf_visits,
                 "gather_planes_f32": gather_cuda.gather_planes_f32,
                 "tsdf_set_deposit": deposit_cuda.tsdf_set_deposit}
-    for fn in counters.values():
-        fn.launches = 0
-    with without_gc_pauses():
-        t0 = time.perf_counter()
-        for b in batches:
-            mapper.integrate_rays(b)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    zero_counts(counters)
+    rays_per_sec = timed_integration(mapper, batches, warmup=TSDF_WARMUP)
+    launches = read_counts(counters)
     stats = mapper.stats
     for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
         if stats[name]:
@@ -2954,6 +2889,18 @@ def phase_tsdf_bench() -> dict:
     if launches["gather_planes_f32"] or launches["tsdf_set_deposit"]:
         raise AssertionError(f"K5 or K6 launched on the TSDF path: {launches}")
     peak = torch.cuda.max_memory_allocated()
+    sync_rps = sync_rays_per_sec(mapper, batches)
+
+    # One more batch, its kernel calls captured and each held against its
+    # plain version; then the same arguments timed.
+    with first_call_args(expand_cuda, "expand_keys") as k1_args, \
+            first_call_args(tsdf_cuda, "tsdf_visits") as visits_args:
+        mapper.integrate_rays(batches[0])
+    torch.cuda.synchronize()
+    errs = check_tsdf_path_calls(k1_args[0], visits_args[0])
+    calls = time_tsdf_path_calls(k1_args[0], visits_args[0])
+    del k1_args, visits_args
+    torch.cuda.synchronize()
 
     host_prep_ms, device_ms, _, _ = device_and_host_ms(mapper, batches)
     mapper._drain_stats()
@@ -2968,9 +2915,9 @@ def phase_tsdf_bench() -> dict:
                and (w <= np.float32(mapper.options.max_weight)).all() for w, d in lay.values())
     if observed == 0 or not sane:
         raise AssertionError(f"TSDF bench map: observed={observed} sane={sane}")
-    rays_per_sec = RAYS_PER_BATCH * TSDF_BATCHES / elapsed
     emit({"metric": "tsdf_rays_per_sec", "value": rays_per_sec, "unit": "rays/s",
-          "batches": TSDF_BATCHES, "warmup": TSDF_WARMUP, "rays_per_batch": RAYS_PER_BATCH,
+          "sync_rays_per_sec": sync_rps, "batches": TSDF_BATCHES, "warmup": TSDF_WARMUP,
+          "rays_per_batch": RAYS_PER_BATCH,
           "resolution": RESOLUTION, "capacity": TSDF_CAPACITY,
           "host_prep_ms_per_batch": host_prep_ms, "device_ms_per_batch": device_ms,
           "records_per_batch": calls["records"], "depositing_per_batch": calls["depositing"],
@@ -4252,16 +4199,19 @@ def layered_heightmap(m) -> tuple[float, int, dict]:
     return seconds, n, layer
 
 
-def phase_ndt_tm_pipeline(tm_mapper, integrate_sec: float, queries: dict) -> dict:
+def phase_ndt_tm_pipeline(tm_mapper, integrate_sec: float, sync_integrate_sec: float,
+                          queries: dict) -> dict:
     """scripts/bench_modes.py's config 5 row: the NDT-TM frame's integrate
-    (ndt_tm_integrate_rays_per_sec, synchronous), its warm clearance field
-    (queries) and the layered heightmap of its map, built here."""
+    through the worker (ndt_tm_integrate_rays_per_sec), its warm clearance
+    field (queries) and the layered heightmap of its map, built here; the
+    synchronous frame's seconds beside them."""
     hm_sec, n, _ = layered_heightmap(tm_mapper.map)
     if n <= 0:
         raise AssertionError("the NDT-TM frame's layered heightmap is empty")
     row = {"metric": "ndt_tm_pipeline_frame_sec",
            "value": integrate_sec + queries["clearance_sec"] + hm_sec, "unit": "s",
            "rays": TM_FRAME_RAYS, "integrate_sec": integrate_sec,
+           "sync_integrate_sec": sync_integrate_sec,
            "clearance_sec": queries["clearance_sec"],
            "clearance_incremental_sec": queries["clearance_incremental_sec"],
            "clearance_incremental_regions": queries["clearance_incremental_regions"],
@@ -4289,21 +4239,12 @@ def harness_runs():
 
 
 def write_outdoor_laz(directory: str) -> tuple[str, str]:
-    """scripts/bench_modes.py config 2's .laz round trip: 12 x 8192
-    outdoor_rays samples (seed 7) through the port's LASzip writer, with a
-    timestamp a point and the two-line static trajectory of the sensor."""
+    """scripts/bench_modes.py config 2's .laz: 12 x 8192 outdoor_rays
+    samples (seed 7) through the port's LASzip writer, with a timestamp a
+    point and the two-line static trajectory of the sensor."""
     rng = np.random.default_rng(OUTDOOR_SEED)
-    batches = [outdoor_rays(RAYS_PER_BATCH, rng) for _ in range(OUTDOOR_BATCHES)]
-    pts = np.concatenate([b[1::2] for b in batches])
-    t = 1000.0 + np.arange(len(pts)) * 1e-4
-    laz = os.path.join(directory, "outdoor.laz")
-    write_laz(laz, pts, timestamps=t)
-    traj = os.path.join(directory, "traj.txt")
-    sensor = batches[0][0]
-    with open(traj, "w") as fh:
-        fh.write(f"{t[0]} {sensor[0]} {sensor[1]} {sensor[2]}\n")
-        fh.write(f"{t[-1] + 1} {sensor[0]} {sensor[1]} {sensor[2]}\n")
-    return laz, traj
+    return write_laz_cloud([outdoor_rays(RAYS_PER_BATCH, rng) for _ in range(OUTDOOR_BATCHES)],
+                           directory)
 
 
 def ohmpop_run(laz, traj, base, device, mode="occupancy", *extra):
@@ -4444,6 +4385,66 @@ def phase_apps() -> dict:
     return row
 
 
+#: The lines each of the port's two bench commands must print, by metric.
+PORT_BENCH_METRICS = {
+    "bench": ("hardware_differential", "occupancy_integrate_rays_per_sec", "bench_attribution"),
+    "bench_modes": ("hardware_differential_worst_abs_err", "occupancy_mean_outdoor_rays_per_sec",
+                    "rays_query_p50_ms", "sharded_n1_overhead", "ndt_om_rays_per_sec",
+                    "tsdf_rays_per_sec", "layered_heightmap_build_sec"),
+}
+PORT_BENCH_TIMEOUT_S = 300
+
+
+def run_port_bench(module: str, *args) -> dict:
+    """``python -m module args`` from the repository root, in its own
+    process: its exit code, seconds, JSON lines by metric and, on failure,
+    the end of its standard error."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=PORT_BENCH_TIMEOUT_S)
+    lines = {}
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("{"):
+            row = json.loads(ln)
+            lines[row["metric"]] = row
+    out = {"rc": proc.returncode, "seconds": time.perf_counter() - t0, "lines": lines}
+    if proc.returncode:
+        out["stderr"] = proc.stderr[-2000:]
+    return out
+
+
+def phase_port_bench() -> dict:
+    """The two commands a benchmark's cells run, each in its own process on
+    the card: python -m ohm_tpu_torch.bench, and
+    python -m ohm_tpu_torch.scripts.bench_modes --quick (its rows to a
+    temporary --out).  Each must exit 0 and print its lines, each line on
+    this card (backend cuda, the card's name), the differential ok, and
+    bench_modes' file must hold the rows it printed, each with its SHA."""
+    name = torch.cuda.get_device_name(0)
+    torch.cuda.empty_cache()  # this process's cached blocks, for the child's arenas
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "BENCH_extra.json")
+        runs = {"bench": run_port_bench("ohm_tpu_torch.bench"),
+                "bench_modes": run_port_bench("ohm_tpu_torch.scripts.bench_modes", "--quick",
+                                              "--out", out)}
+        written = []
+        if os.path.exists(out):
+            with open(out) as f:
+                written = json.load(f)
+    ok = all(r["rc"] == 0 and sorted(r["lines"]) == sorted(PORT_BENCH_METRICS[cmd])
+             and all(ln["backend"] == "cuda" and ln["device"] == name
+                     for ln in r["lines"].values())
+             for cmd, r in runs.items())
+    ok = ok and runs["bench"]["lines"]["hardware_differential"]["ok"]
+    ok = ok and [r["metric"] for r in written] == list(PORT_BENCH_METRICS["bench_modes"]) and all(
+        "sha" in r for r in written)
+    row = {"phase": "port_bench", **runs, "written_rows": len(written), "ok": bool(ok)}
+    emit(row)
+    if not ok:
+        raise AssertionError("a port bench command failed or missed a line")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wrappers-of", metavar="DIR",
@@ -4485,11 +4486,13 @@ def main(argv=None) -> int:
     k4_flags = timed("k4_ndt_flags", phase_k4_flags)
     timed("ndt_hardware_differential", phase_ndt_hardware_differential)
     ndt = timed("ndt_om_rays_per_sec", phase_ndt_om_bench)
-    tm_mapper, tm_seconds = timed("ndt_tm_integrate_rays_per_sec", phase_ndt_tm_frame)
+    tm_mapper, tm_seconds, tm_sync_seconds = timed("ndt_tm_integrate_rays_per_sec",
+                                                   phase_ndt_tm_frame)
     timed("ndt_layers_hardware_differential", phase_ndt_layers_hardware_differential)
     ndt_layers = timed("ndt_layers_rays_per_sec", phase_ndt_layers_bench)
     queries = timed("queries", phase_queries, outdoor["mapper"], tm_mapper)
-    timed("ndt_tm_pipeline_frame_sec", phase_ndt_tm_pipeline, tm_mapper, tm_seconds, queries)
+    timed("ndt_tm_pipeline_frame_sec", phase_ndt_tm_pipeline, tm_mapper, tm_seconds,
+          tm_sync_seconds, queries)
     del tm_mapper
     k5 = timed("k5_gather_f32", phase_k5)
     k6 = timed("k6_tsdf_deposit", phase_k6)
@@ -4504,6 +4507,7 @@ def main(argv=None) -> int:
     sharded = timed("sharded", phase_sharded)
     p = timed("p", phase_p)
     apps = timed("apps", phase_apps)
+    timed("port_bench", phase_port_bench)
     ohmpop_launches = {mode: apps["modes"][mode]["launches"] for mode in ("ndt", "ndt-tm", "tsdf")}
     ohmpop_launches["occupancy"] = apps["ohmpop"]["launches"]
     foreign = sorted(n for n in sys.modules if n in ("jax", "ohm_tpu")

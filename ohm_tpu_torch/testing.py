@@ -313,3 +313,63 @@ PROBE_LIBRARY_CALLS = {
     "onehot_mxu_dot": lambda v: torch.bincount(v.reshape(-1), minlength=32768)
     .view(64, 512).float(),
 }
+
+
+#: The mappers whose timed loops in the port's benches go through the
+#: worker: occupancy and TSDF (timed_integration), NDT-TM with intensities
+#: and timestamps (integrate_frame, config 5's loop).
+BENCH_WORKER_KINDS = ("occupancy", "tsdf", "ndt_tm")
+
+
+def bench_worker_maps(kind: str, device, rays_per_batch: int = 256, n_batches: int = 4) -> tuple:
+    """Two maps of one small box scene (0.1 m, 8 regions): one built by the
+    benches' loop through the worker, the other by the same calls in the
+    same order through synchronous integrate_rays.  Returns (worker map,
+    synchronous map)."""
+    from ohm_tpu_torch.bench import box_scene_rays, timed_integration
+    from ohm_tpu_torch.core.map import MapFlag, OccupancyMap
+    from ohm_tpu_torch.mapping.ndt_map import TorchNdtMap
+    from ohm_tpu_torch.mapping.torch_map import TorchRayMapper
+    from ohm_tpu_torch.mapping.tsdf_map import TorchTsdfMap
+    from ohm_tpu_torch.oracle.ndt import NdtParams
+    from ohm_tpu_torch.scripts.bench_modes import integrate_frame
+
+    rng = np.random.default_rng(3)
+    batches = [box_scene_rays(rays_per_batch, rng, half=(2.0, 2.0, 1.0))
+               for _ in range(n_batches)]
+    warmup = 2
+
+    def mapper():
+        m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
+        if kind == "ndt_tm":
+            return TorchNdtMap(m, NdtParams(ndt_tm=True), capacity=16, miss_k=1 << 15,
+                               validate=True, device=device)
+        cls = TorchTsdfMap if kind == "tsdf" else TorchRayMapper
+        return cls(m, capacity=16, validate=True, device=device)
+
+    worker, sync = mapper(), mapper()
+    if kind == "ndt_tm":
+        frame = np.concatenate(batches)
+        n = len(frame) // 2
+        intens = rng.uniform(0.0, 1.0, n).astype(np.float32)
+        times = np.linspace(0.0, 0.1, n)
+        integrate_frame(worker, frame, intens, times, rays_per_batch, warmup=warmup)
+        step = 2 * rays_per_batch
+        for i in [*range(0, warmup * step, step), *range(0, len(frame), step)]:
+            sync.integrate_rays(frame[i:i + step],
+                                intensities=intens[i // 2:i // 2 + rays_per_batch],
+                                timestamps=times[i // 2:i // 2 + rays_per_batch])
+    else:
+        timed_integration(worker, batches, warmup=warmup)
+        sync.prime_caps(batches)
+        for b in batches[:warmup] + batches + batches:
+            sync.integrate_rays(b)
+    worker.sync_voxels()
+    sync.sync_voxels()
+    return worker.map, sync.map
+
+
+def map_bytes(m) -> dict:
+    """(region, layer index) -> the bytes of every layer of every chunk."""
+    return {(key, i): np.ascontiguousarray(layer).tobytes()
+            for key, chunk in m.chunks.items() for i, layer in enumerate(chunk.layers)}

@@ -24,7 +24,10 @@ themselves on the CPU and give the same bits on every run, and so must the
 queries (RaysQuery, LineKeysQuery, ClearanceProcess); so must TorchRayMapper on
 the segmented wire, its STOP_ON_FIRST_OCCUPIED monolith included, with K2
 launched and K1 not; and ShardedRayFlowMapper on four shards of the card,
-bit for bit TorchRayMapper's occupancy, with K1 and K2 on every shard.
+bit for bit TorchRayMapper's occupancy, with K1 and K2 on every shard.  The
+loops the port's benches time through the asynchronous worker
+(timed_integration, integrate_frame) leave the map the same synchronous
+calls leave, bit for bit, for occupancy, TSDF and NDT-TM.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -56,8 +59,9 @@ from ohm_tpu_torch.ops.slotgrid_cuda import (scatter_deposit, slotgrid_deposit,
 from ohm_tpu_torch.ops.wire import unpack_batch
 from ohm_tpu_torch.scripts import probe_deposit as pd
 from ohm_tpu_torch.ops.tsdf_cuda import tsdf_visits, tsdf_visits_reference
-from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, PROBE_LIBRARY_CALLS,
-                                   TSDF_VISIT_STREAMS, deposit_edge_stream, dispatched_ops, edge_rays,
+from ohm_tpu_torch.testing import (BENCH_WORKER_KINDS, DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS,
+                                   PROBE_LIBRARY_CALLS, TSDF_VISIT_STREAMS, bench_worker_maps,
+                                   deposit_edge_stream, dispatched_ops, edge_rays, map_bytes,
                                    ndt_edge_streams, ndt_flag_arena, tsdf_visit_stream)
 
 pytestmark = pytest.mark.cuda
@@ -875,3 +879,11 @@ def test_sharded_rayflow_mapper_on_card_matches_single_device(cuda):
     assert occ[0].keys() == occ[1].keys() == occ[2].keys() and len(occ[0]) > 0
     for k in occ[0]:
         assert np.array_equal(occ[0][k], occ[1][k]) and np.array_equal(occ[0][k], occ[2][k])
+
+
+@pytest.mark.parametrize("kind", BENCH_WORKER_KINDS)
+def test_bench_worker_loop_gives_the_synchronous_map(cuda, kind):
+    worker, sync = bench_worker_maps(kind, "cuda")
+    a, b = map_bytes(worker), map_bytes(sync)
+    assert len(worker.chunks) > 0 and a.keys() == b.keys()
+    assert all(a[k] == b[k] for k in a)

@@ -1,8 +1,8 @@
 """The PyTorch port's boundaries: it imports and integrates without JAX and
 without any module of the JAX package (on the rayflow and the segmented
-wire; its apps from a .laz; its sharded mappers), its default device is CUDA
-and never quietly the CPU, and its mappers take any map layout, as the
-reference's do."""
+wire; its apps from a .laz; its sharded mappers; its two benches), its
+default device is CUDA and never quietly the CPU, and its mappers take any
+map layout, as the reference's do."""
 
 import ctypes
 import os
@@ -200,6 +200,30 @@ def test_parallel_imports_and_steps_with_jax_blocked():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+_BENCH_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+from ohm_tpu_torch import bench
+from ohm_tpu_torch.scripts import bench_modes
+rows = bench.run("cpu", 256, 4, check=False)
+assert [r["metric"] for r in rows] == ["occupancy_integrate_rays_per_sec", "bench_attribution"]
+assert bench_modes.differential_on_hardware("cpu")["voxels"] > 0
+print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu.", "scripts."))
+             or n in ("ohm_tpu", "scripts", "bench", "triton")))
+"""
+
+
+def test_bench_modules_import_and_run_with_jax_blocked():
+    """ohm_tpu_torch.bench and ohm_tpu_torch.scripts.bench_modes import and
+    run on the CPU with JAX blocked, and load no module of ohm_tpu, nor the
+    root bench.py or scripts/."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _BENCH_SCRIPT], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_parallel_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from ohm_tpu_torch.parallel import ShardMesh, dryrun_multichip
 
@@ -215,7 +239,8 @@ def test_parallel_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_no_source_of_the_port_imports_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax\b|import\s+ohm_tpu\b|from\s+ohm_tpu[. ]"
-                         r"|import\s+scripts\b|from\s+scripts\b)", re.MULTILINE)
+                         r"|import\s+scripts\b|from\s+scripts\b|import\s+bench\b|from\s+bench\b)",
+                         re.MULTILINE)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "ohm_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
