@@ -169,6 +169,24 @@ exit code is not 0 and no result line is printed:
                arguments this path gave them, each against its plain
                version bit for bit, then each call beside its plain version,
                each kernel alone and each one's bound
+  apply_routes the apply routes of the reference's mapper (TorchRayMapper's
+               routing, tpu_map.py:570-624) on the box (with the traversal
+               layer) and on config 2's outdoor .laz batches, 8 x 8192 rays
+               each, four of them sizing the windows: the split apply
+               (OHM_FUSED=0), the fused row-local apply (OHM_FUSED=2, twice),
+               the delta path (delta_path=True) and the worker (its thread
+               with coalesced uploads, then one group of four as a chain)
+               under the split and the fused apply; occupancy and mean bits
+               against the split run's, traversal within
+               testing.fused_traversal_atol (the blocked sums' rounding
+               bound: 4.6e-4 at 0.1 m, 9.3e-4 at 0.2 m), the second fused
+               run bit for bit; K1 on the fused, delta and chained routes
+               against its plain version; each route's host prep, device ms,
+               device operations, host syncs and K1/K2 launches a batch (K2
+               on the split routes only); NDT-OM with traversal, the fused
+               deposit against K3 on 6 box batches; and the route the
+               default mapper took on the box, outdoor, side-layer and NDT
+               side-layer paths above, batch by batch
   queries      scripts/bench_modes.py's query rows: RaysQuery with 512
                outdoor rays on the outdoor mean map (13 executes, the first
                dropped: rays_query_p50_ms; 16 re-dispatches on a resident
@@ -342,7 +360,8 @@ Each phase's seconds follow it on a "phase_seconds" line.
                process: python -m ohm_tpu_torch.bench and python -m
                ohm_tpu_torch.scripts.bench_modes --quick; each must exit 0
                and print all its lines (the reference's keys plus backend
-               "cuda" and the card's name), the differential ok, and
+               "cuda" and the card's name), the differential ok, the fused
+               differential bit-identical, and
                bench_modes' --out file hold its rows
 
 Then one JSON line of the kernels (each with its bound: the bytes it must
@@ -379,8 +398,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ohm_tpu_torch import TorchNdtMap, TorchRayMapper, TorchTsdfMap, native
 from ohm_tpu_torch.app import harness as app_harness
-from ohm_tpu_torch.bench import (box_scene_rays, device_and_host_ms, emit, fenced_seconds,
-                                 timed_integration, without_gc_pauses)
+from ohm_tpu_torch.bench import (box_scene_rays, device_and_host_ms, emit, environ,
+                                 fenced_seconds, timed_integration, without_gc_pauses)
 from ohm_tpu_torch.app import ohm2ply, ohmcmp, ohmheightmap, ohmhm2img, ohminfo, ohmpop, ohmquery
 from ohm_tpu_torch.core import subvoxel
 from ohm_tpu_torch.core.layout import (CLEARANCE_LAYER, COVARIANCE_LAYER, HIT_MISS_COUNT_LAYER,
@@ -416,8 +435,8 @@ from ohm_tpu_torch.scripts.bench_modes import (integrate_frame, laz_round_trip, 
                                                write_laz_cloud)
 from ohm_tpu_torch.testing import (DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS, PROBE_LIBRARY_CALLS,
                                    TSDF_SPECIALS, TSDF_VISIT_STREAMS, deposit_edge_stream,
-                                   dispatched_ops,
-                                   edge_rays, ndt_edge_streams, ndt_flag_arena,
+                                   dispatched_ops, edge_rays, fused_traversal_atol,
+                                   ndt_edge_streams, ndt_flag_arena,
                                    tsdf_visit_stream)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1326,6 +1345,7 @@ def phase_bench(k1: dict) -> dict:
     rng = np.random.default_rng(SEED)
     m = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
     mapper = TorchRayMapper(m, capacity=CAPACITY, device="cuda")
+    routes = log_routes(mapper)
     batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(N_BATCHES)]
 
     # The main path, counted: every count is 0 just before it.  bench.py's
@@ -1402,7 +1422,7 @@ def phase_bench(k1: dict) -> dict:
           "max_memory_allocated_bytes": peak})
     return {"launches": launches, "ms": {"expand_keys": k1_kern, "deposit_and_sweep": k2_kern},
             "plain_ms": {"expand_keys": k1_plain, "deposit_and_sweep": k2_plain},
-            "bound": bounds, "alone_ms": k1_alone, "k2_device": k2_prof}
+            "bound": bounds, "alone_ms": k1_alone, "k2_device": k2_prof, "routes": routes}
 
 
 def phase_k1_trav(k1: dict) -> dict:
@@ -1613,6 +1633,7 @@ def phase_layers_bench() -> dict:
     torch.cuda.reset_peak_memory_stats()
     m = OccupancyMap(resolution=RESOLUTION, flags=LAYER_FLAGS)
     mapper = TorchRayMapper(m, capacity=CAPACITY, device="cuda")
+    routes = log_routes(mapper)
     batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(N_BATCHES)]
     stamps = [1000.0 + 0.1 * i + np.arange(RAYS_PER_BATCH) * 1e-5 for i in range(N_BATCHES)]
     mapper.prime_caps(batches)
@@ -1721,7 +1742,7 @@ def phase_layers_bench() -> dict:
                                           "compaction_dropped")},
           "max_memory_allocated_bytes": peak})
     return {"launches": launches, "max_abs_err": errs, "ms": k1_kern, "plain_ms": k1_plain,
-            "bound": k1_bnd, "alone_ms": alone["with_trav"]}
+            "bound": k1_bnd, "alone_ms": alone["with_trav"], "routes": routes}
 
 
 def phase_outdoor_mean_bench() -> dict:
@@ -1729,6 +1750,7 @@ def phase_outdoor_mean_bench() -> dict:
     rng = np.random.default_rng(OUTDOOR_SEED)
     m = OccupancyMap(resolution=OUTDOOR_RESOLUTION, flags=MapFlag.VOXEL_MEAN)
     mapper = TorchRayMapper(m, capacity=OUTDOOR_CAPACITY, device="cuda")
+    routes = log_routes(mapper)
     synthetic = [outdoor_rays(RAYS_PER_BATCH, rng) for _ in range(OUTDOOR_BATCHES)]
     batches = laz_round_trip(synthetic, RAYS_PER_BATCH)
 
@@ -1783,7 +1805,7 @@ def phase_outdoor_mean_bench() -> dict:
           "wire_bytes_per_ray": setups[0][0].nbytes / RAYS_PER_BATCH,
           "stats": {k: stats[k] for k in ("batches", "missed_updates", "overflow",
                                           "compaction_dropped")}})
-    return {"launches": launches, "max_abs_err": errs, "mapper": mapper}
+    return {"launches": launches, "max_abs_err": errs, "mapper": mapper, "routes": routes}
 
 
 def _snapshot(x):
@@ -2302,6 +2324,7 @@ def phase_ndt_layers_bench() -> dict:
     rng = np.random.default_rng(SEED)
     m = OccupancyMap(resolution=NDT_RESOLUTION, flags=NDT_LAYER_FLAGS)
     mapper = TorchNdtMap(m, capacity=NDT_CAPACITY, device="cuda")
+    routes = log_routes(mapper)
     n = NDT_LAYERS_BATCHES
     batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(n)]
     stamps = [1000.0 + 0.1 * i + np.arange(RAYS_PER_BATCH) * 1e-5 for i in range(n)]
@@ -2382,7 +2405,7 @@ def phase_ndt_layers_bench() -> dict:
           "stats": {k: stats[k] for k in ("missed_updates", "overflow", "compaction_dropped",
                                           "ndt_overflow", "ndt_flagged")},
           "max_memory_allocated_bytes": peak})
-    return {"launches": launches, "max_abs_err": errs, **timing}
+    return {"launches": launches, "max_abs_err": errs, "routes": routes, **timing}
 
 
 def phase_queries(outdoor_mapper, tm_mapper) -> dict:
@@ -4386,8 +4409,267 @@ def phase_apps() -> dict:
 
 
 #: The lines each of the port's two bench commands must print, by metric.
+ROUTES_BATCHES = 8  # 4 sizing batches (row_cap, the delta window), then 4 more
+ROUTES_NDT_BATCHES = 6
+
+
+def log_routes(mapper) -> list:
+    """The route of every batch ``mapper`` integrates from now on, in order
+    (its ``last_route`` after each device step; a chained group's once a
+    batch)."""
+    routes = []
+    step, chain = mapper._integrate_device, mapper._dispatch_chain
+
+    def stepped(*args):
+        out = step(*args)
+        routes.append(mapper.last_route)
+        return out
+
+    def chained(stacked, pending, cfg):
+        chain(stacked, pending, cfg)
+        routes.extend([mapper.last_route] * len(pending))
+
+    mapper._integrate_device = stepped
+    mapper._dispatch_chain = chained
+    return routes
+
+
+def runs_of(routes: list) -> list:
+    """A route sequence as [route, batches in a row] pairs, in order."""
+    out = []
+    for r in routes:
+        if out and out[-1][0] == r:
+            out[-1][1] += 1
+        else:
+            out.append([r, 1])
+    return out
+
+
+def route_mapper(kind: str, fused: str, scene: str, **kw):
+    """A mapper of the apply_routes phase: the box (bench.py's, 0.1 m, 512
+    slots; with the traversal layer unless ``kind`` is "delta") or the
+    outdoor .laz batches (config 2's, 0.2 m, 1024 slots, voxel mean), or
+    NDT-OM with traversal (0.2 m, 1024 slots)."""
+    with environ("OHM_FUSED", fused):
+        if scene == "ndt":
+            return TorchNdtMap(OccupancyMap(resolution=NDT_RESOLUTION, flags=MapFlag.TRAVERSAL),
+                               capacity=NDT_CAPACITY, device="cuda", **kw)
+        if scene == "box":
+            flags = MapFlag.NONE if kind == "delta" else MapFlag.TRAVERSAL
+            m = OccupancyMap(resolution=RESOLUTION, flags=flags)
+            return TorchRayMapper(m, capacity=CAPACITY, device="cuda", **kw)
+        m = OccupancyMap(resolution=OUTDOOR_RESOLUTION, flags=MapFlag.VOXEL_MEAN)
+        return TorchRayMapper(m, capacity=OUTDOOR_CAPACITY, device="cuda", **kw)
+
+
+def route_layers(m) -> dict:
+    """The host map's occupancy, traversal and mean members, by (region,
+    member), after sync_voxels."""
+    out = {}
+    for layer, members in ((OCCUPANCY_LAYER, ("occupancy",)), (TRAVERSAL_LAYER, ("traversal",)),
+                           (MEAN_LAYER, ("coord", "count"))):
+        i = m.layer_index(layer)
+        if i < 0:
+            continue
+        for key, c in m.chunks.items():
+            for name in members:
+                out[(key, name)] = np.array(c.layers[i][name])
+    return out
+
+
+def compare_route(a: dict, b: dict) -> dict:
+    """Two route runs' host layers (the members both have): the same
+    regions, occupancy (and mean) bits, traversal's largest difference."""
+    regions = lambda d: {k[0] for k in d if k[1] == "occupancy"}  # noqa: E731
+    if regions(a) != regions(b):
+        return {"same_regions": False, "occupancy_bits": False}
+    both = a.keys() & b.keys()
+    bits = all(np.array_equal(a[k].view(np.uint32), b[k].view(np.uint32))
+               for k in both if k[1] != "traversal")
+    trav = max((float(np.abs(a[k] - b[k]).max()) for k in both if k[1] == "traversal"),
+               default=None)
+    return {"same_regions": True, "occupancy_bits": bool(bits),
+            "traversal_max_abs_diff": trav}
+
+
+def run_route(mapper, batches, worker: bool = False) -> dict:
+    """``batches`` through ``mapper``, its shape caches primed, then
+    sync_voxels: the routes taken, rays/s and the host layers.  With
+    ``worker`` the sizing half goes through the worker thread (coalesced
+    uploads) and the rest as one group of the worker's (_integrate_group:
+    one upload, a chain)."""
+    routes = log_routes(mapper)
+    mapper.prime_caps(batches)
+    half = len(batches) // 2
+    t0 = time.perf_counter()
+    if worker:
+        for b in batches[:half]:
+            mapper.integrate_rays_async(b)
+        mapper.flush()
+        mapper._integrate_group([(b, None, None, 0) for b in batches[half:]])
+    else:
+        for b in batches:
+            mapper.integrate_rays(b)
+    torch.cuda.synchronize()
+    rps = sum(len(b) // 2 for b in batches) / (time.perf_counter() - t0)
+    mapper.sync_voxels()
+    stats = mapper.stats
+    for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
+        if stats[name]:
+            raise AssertionError(f"a route reported {name}={stats[name]}")
+    return {"routes": routes, "rays_per_sec": rps, "layers": route_layers(mapper.map)}
+
+
+def route_costs(mapper, batches) -> dict:
+    """One route's costs a batch on resident wires (the arena holds every
+    region): host prep ms, device ms (host clock to a synchronize) and
+    K1's and K2's launches over one pass, then device operations
+    (torch.profiler) and host syncs (torch's sync debug mode) of one
+    batch, each over the route ``mapper`` takes now."""
+    counters = {"expand_keys": expand_cuda.expand_keys,
+                "deposit_and_sweep": deposit_cuda.deposit_and_sweep}
+    zero_counts(counters)
+    host_prep_ms, device_ms, wires, setups = device_and_host_ms(mapper, batches)
+    launches = {k: v / len(wires) for k, v in read_counts(counters).items()}
+    w, (_, cfg, n) = wires[0], setups[0]
+    ops = device_profile(lambda: mapper._dispatch(w, cfg, n), reps=4)["device_ops"]
+    syncs = count_host_syncs(lambda: mapper._dispatch(w, cfg, n))
+    mapper._drain_stats()
+    return {"route": mapper.last_route, "host_prep_ms_per_batch": host_prep_ms,
+            "device_ms_per_batch": device_ms, "device_ops_per_batch": ops,
+            "host_syncs_per_batch": syncs, "launches_per_batch": launches}
+
+
+def chain_costs(mapper, batches) -> tuple[dict, tuple]:
+    """The chained group's costs a batch: one stacked upload of four wires
+    (pinned, one copy) and one chain, its device ms by the host clock to a
+    synchronize and its K1/K2 launches, then device operations and host
+    syncs of another.  Returns them and K1's first call in the chain."""
+    setups = [mapper._rayflow_setup_host(b, None, None, 0) for b in batches[:mapper._coalesce]]
+    pending = [(w, cfg, n, 0) for w, cfg, n in setups]
+    cfg = mapper._chain_cfg(pending)
+    if cfg is None:
+        raise AssertionError("the chained group is not eligible")
+    k = len(pending)
+    stacked = mapper._upload([p[0] for p in pending])
+    counters = {"expand_keys": expand_cuda.expand_keys,
+                "deposit_and_sweep": deposit_cuda.deposit_and_sweep}
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    device_ms = fenced_seconds(lambda: mapper._dispatch_chain(stacked, pending, cfg),
+                               "cuda") * 1e3 / k
+    launches = {n: v / k for n, v in read_counts(counters).items()}
+    ops = device_profile(lambda: mapper._dispatch_chain(stacked, pending, cfg),
+                         reps=2)["device_ops"] / k
+    # (A wrapped kernel counts its launches under the wrapper: this call's
+    # are not counted.)
+    with first_call_args(expand_cuda, "expand_keys") as k1_args:
+        syncs = count_host_syncs(lambda: mapper._dispatch_chain(
+            mapper._upload([p[0] for p in pending]), pending, cfg))
+    mapper._drain_stats()
+    return {"route": mapper.last_route, "device_ms_per_batch": device_ms,
+            "device_ops_per_batch": ops, "host_syncs_per_group": syncs, "group": k,
+            "launches_per_batch": launches}, k1_args[0]
+
+
+def phase_apply_routes(default_routes: dict) -> dict:
+    """The apply routes on the card (TorchRayMapper._integrate_device's
+    routing, the reference's _dispatch order): on the box and on config 2's
+    outdoor .laz batches, each route's mapper over the same batches, four
+    to size the windows and four more: the split apply (OHM_FUSED=0), the
+    fused row-local apply (OHM_FUSED=2), the delta path (delta_path=True),
+    and the worker's coalesced and chained submission under each apply;
+    occupancy (and mean) bits against the split run's, traversal within
+    testing.fused_traversal_atol, the fused run again bit for bit; K1 on the fused,
+    delta and chained routes against its plain version; each route's host
+    and device ms, device operations, host syncs and launches a batch;
+    NDT-OM with traversal, fused against K3; and the route the default
+    mapper took on the box, outdoor, side-layer and NDT side-layer paths,
+    batch by batch."""
+    rng = np.random.default_rng(SEED)
+    scenes = {"box": [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(ROUTES_BATCHES)],
+              "outdoor": laz_round_trip([outdoor_rays(RAYS_PER_BATCH, np.random.default_rng(
+                  OUTDOOR_SEED)) for _ in range(ROUTES_BATCHES)], RAYS_PER_BATCH)}
+    out = {"phase": "apply_routes", "default_routes": {k: runs_of(v)
+                                                      for k, v in default_routes.items()},
+           "traversal_atol": {"box": fused_traversal_atol(RESOLUTION),
+                              "ndt": fused_traversal_atol(NDT_RESOLUTION)}}
+    k1_errs, ok = [], True
+    for scene, batches in scenes.items():
+        runs = {"split": run_route(route_mapper("split", "0", scene), batches),
+                "fused": run_route(route_mapper("fused", "2", scene), batches),
+                "fused_again": run_route(route_mapper("fused", "2", scene), batches),
+                "delta": run_route(route_mapper("delta", "0", scene, delta_path=True), batches),
+                "worker_split": run_route(route_mapper("split", "0", scene), batches, True),
+                "worker_fused": run_route(route_mapper("fused", "2", scene), batches, True)}
+        want = {"split": "split", "fused": "fused", "fused_again": "fused", "delta": "delta",
+                "worker_split": "chain_split", "worker_fused": "chain_fused"}
+        row = {}
+        for name, r in runs.items():
+            cmp = compare_route(runs["fused" if name == "fused_again" else "split"]["layers"],
+                                r["layers"])
+            took = want[name] in r["routes"]
+            trav = cmp.get("traversal_max_abs_diff")
+            good = cmp["occupancy_bits"] and took and (
+                trav is None or trav <= fused_traversal_atol(RESOLUTION))
+            if name == "fused_again":
+                good = good and trav in (None, 0.0)
+            ok = ok and good
+            row[name] = {"routes": runs_of(r["routes"]), "rays_per_sec": r["rays_per_sec"],
+                         **cmp, "ok": bool(good)}
+        # Each route's costs a batch on resident wires, and K1 on the fused,
+        # delta and chained routes against its plain version.
+        costs, k1_calls = {}, {}
+        for kind, fused, kw in (("split", "0", {}), ("fused", "2", {}),
+                                ("delta", "0", {"delta_path": True})):
+            mapper = route_mapper(kind, fused, scene, **kw)
+            mapper.prime_caps(batches)
+            for b in batches[:4]:
+                mapper.integrate_rays(b)
+            if kind != "split":
+                with first_call_args(expand_cuda, "expand_keys") as k1_args:
+                    mapper.integrate_rays(batches[4])
+                k1_calls[kind] = k1_args[0]
+            costs[kind] = route_costs(mapper, batches[4:])
+            if kind != "delta":
+                costs[f"chain_{kind}"], k1_call = chain_costs(mapper, batches[4:])
+                if kind == "fused":
+                    k1_calls["chain_fused"] = k1_call
+        torch.cuda.synchronize()
+        for name, call in k1_calls.items():
+            check = check_k1_call(call)
+            row[f"k1_{name}"] = check
+            k1_errs.append(check["max_abs_err"])
+            ok = ok and check["bit_identical"]
+        del k1_calls
+        row["costs"] = costs
+        # K1 launches on every route, K2 on the split ones only.
+        for name, c in costs.items():
+            n = c["launches_per_batch"]
+            split = name in ("split", "chain_split")
+            ok = ok and c["route"] == name and n["expand_keys"] == 1 and (
+                n["deposit_and_sweep"] == 1 if split else n["deposit_and_sweep"] == 0)
+        out[scene] = row
+    # NDT-OM with traversal: the fused std-count deposit against K3.
+    ndt_batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(ROUTES_NDT_BATCHES)]
+    ndt = {name: run_route(route_mapper(name, fused, "ndt"), ndt_batches)
+           for name, fused in (("k3", "0"), ("fused", "2"))}
+    cmp = compare_route(ndt["k3"]["layers"], ndt["fused"]["layers"])
+    ndt_ok = (cmp["occupancy_bits"] and "fused" in ndt["fused"]["routes"]
+              and cmp["traversal_max_abs_diff"] <= fused_traversal_atol(NDT_RESOLUTION))
+    out["ndt"] = {name: runs_of(r["routes"]) for name, r in ndt.items()} | cmp | {"ok": ndt_ok}
+    out["ok"] = bool(ok and ndt_ok)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError("an apply route differs from the split apply or never ran")
+    return {"max_abs_err": max(k1_errs),
+            "launches_per_batch": {f"{scene}_{name}": c["launches_per_batch"]
+                                   for scene in scenes for name, c in out[scene]["costs"].items()}}
+
+
 PORT_BENCH_METRICS = {
-    "bench": ("hardware_differential", "occupancy_integrate_rays_per_sec", "bench_attribution"),
+    "bench": ("hardware_differential", "hardware_fused_differential",
+              "occupancy_integrate_rays_per_sec", "bench_attribution"),
     "bench_modes": ("hardware_differential_worst_abs_err", "occupancy_mean_outdoor_rays_per_sec",
                     "rays_query_p50_ms", "sharded_n1_overhead", "ndt_om_rays_per_sec",
                     "tsdf_rays_per_sec", "layered_heightmap_build_sec"),
@@ -4436,6 +4718,7 @@ def phase_port_bench() -> dict:
                      for ln in r["lines"].values())
              for cmd, r in runs.items())
     ok = ok and runs["bench"]["lines"]["hardware_differential"]["ok"]
+    ok = ok and runs["bench"]["lines"]["hardware_fused_differential"]["bit_identical"]
     ok = ok and [r["metric"] for r in written] == list(PORT_BENCH_METRICS["bench_modes"]) and all(
         "sha" in r for r in written)
     row = {"phase": "port_bench", **runs, "written_rows": len(written), "ok": bool(ok)}
@@ -4490,6 +4773,9 @@ def main(argv=None) -> int:
                                                    phase_ndt_tm_frame)
     timed("ndt_layers_hardware_differential", phase_ndt_layers_hardware_differential)
     ndt_layers = timed("ndt_layers_rays_per_sec", phase_ndt_layers_bench)
+    routes = timed("apply_routes", phase_apply_routes,
+                   {"box": bench["routes"], "outdoor": outdoor["routes"],
+                    "side_layers": layers["routes"], "ndt_side_layers": ndt_layers["routes"]})
     queries = timed("queries", phase_queries, outdoor["mapper"], tm_mapper)
     timed("ndt_tm_pipeline_frame_sec", phase_ndt_tm_pipeline, tm_mapper, tm_seconds,
           tm_sync_seconds, queries)
@@ -4539,11 +4825,14 @@ def main(argv=None) -> int:
     emit({"kernels": [
         row("expand_keys", "expand.cu", "ohm_tpu/ops/expand_pallas.py:185", bench,
             max(k1["max_abs_err"], k1_trav["max_abs_err"], k1_vox["max_abs_err"],
+                routes["max_abs_err"],
                 layers["max_abs_err"]["expand_keys"], outdoor["max_abs_err"]["expand_keys"],
                 ndt["max_abs_err"]["expand_keys"], tsdf["max_abs_err"]["expand_keys"],
                 ndt_layers["max_abs_err"]["expand_keys"]),
             layers_launches=layers["launches"]["expand_keys"],
             outdoor_mean_launches=outdoor["launches"]["expand_keys"],
+            apply_routes_launches_per_batch={k: v["expand_keys"] for k, v in
+                                             routes["launches_per_batch"].items()},
             ndt_om_launches=ndt["launches"]["expand_keys"],
             tsdf_launches=tsdf["launches"]["expand_keys"],
             with_trav_ms=layers["ms"], with_trav_plain_ms=layers["plain_ms"],
@@ -4580,6 +4869,8 @@ def main(argv=None) -> int:
                 clearing["max_abs_err"]),
             layers_launches=layers["launches"]["deposit_and_sweep"],
             outdoor_mean_launches=outdoor["launches"]["deposit_and_sweep"],
+            apply_routes_launches_per_batch={k: v["deposit_and_sweep"] for k, v in
+                                             routes["launches_per_batch"].items()},
             segmented_launches=seg["launches"]["deposit_and_sweep"],
             segmented_ms=seg["ms"], segmented_plain_ms=seg["plain_ms"],
             segmented_bound_ms=seg["bound"]["bound_ms"],

@@ -15,9 +15,12 @@ and ``device`` (``torch.cuda.get_device_name`` or "cpu"):
   hardware_differential
       TorchRayMapper (validate=True) on a 1024-ray box scan against the f64
       oracle, voxel by voxel, under bench.py's gate; raises on failure
-      (``OHM_BENCH_CHECK=0`` skips it).  bench.py's second check,
-      hardware_fused_differential, has no counterpart: the port has no fused
-      apply, so nothing is printed in its place.
+      (``OHM_BENCH_CHECK=0`` skips it and the next check).
+  hardware_fused_differential
+      bench.py's second check: six 512-ray box batches through
+      TorchRayMapper under OHM_FUSED=0 (the split apply) and OHM_FUSED=2
+      (the fused row-local apply from the fourth batch); the two maps'
+      occupancy bit for bit (``bit_identical``); raises on divergence.
   occupancy_integrate_rays_per_sec
       bench.py's timed region (``timed_integration`` with 4 warm-ups).
       ``vs_baseline`` is null: the reference's 1e8 rays/s target
@@ -177,12 +180,54 @@ def hardware_check(rng, device="cuda", tolerance=1e-4, allowed_ratio=1e-4, worst
     return row
 
 
+@contextlib.contextmanager
+def environ(name: str, value: str):
+    """``os.environ[name]`` set to ``value`` inside the block, then restored."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def hardware_fused_differential(rng, device="cuda", n_batches: int = 6, rays: int = 512) -> dict:
+    """bench.py's second check (bench.py:83-116): the same box batches
+    through a mapper under OHM_FUSED=0 and one under OHM_FUSED=2 (the fused
+    apply from the fourth batch, when row_cap is sized); their occupancy
+    must be bit-identical.  Prints the ``hardware_fused_differential`` line
+    and returns it; raises on divergence."""
+    device = resolve_device(device)
+    batches = [box_scene_rays(rays, rng) for _ in range(n_batches)]
+    maps = []
+    for fused in ("0", "2"):
+        m = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
+        with environ("OHM_FUSED", fused):
+            mapper = TorchRayMapper(m, capacity=CAPACITY, validate=True, device=device)
+        for b in batches:
+            mapper.integrate_rays(b)
+        mapper.sync_voxels()
+        if fused == "2" and not mapper.row_cap > 0:
+            raise AssertionError("fused deposit never activated")
+        maps.append({k: v.view(np.uint32) for k, v in _occupancy(m).items()})
+    exact = maps[0].keys() == maps[1].keys() and all(
+        np.array_equal(maps[0][k], maps[1][k]) for k in maps[0])
+    row = emit({"metric": "hardware_fused_differential", "bit_identical": bool(exact),
+                **device_keys(device)})
+    if not exact:
+        raise AssertionError("fused deposit diverged from the split apply on the device")
+    return row
+
+
 def run(device="cuda", rays_per_batch: int = 8192, n_batches: int = 40, check: bool = True,
         attrib: bool = True) -> list[dict]:
     """bench.py's main at the given size; returns the lines it printed."""
     device = resolve_device(device)
     rng = np.random.default_rng(SEED)
-    rows = [hardware_check(rng, device)] if check else []
+    rows = [hardware_check(rng, device), hardware_fused_differential(rng, device)] if check else []
 
     m = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
     mapper = TorchRayMapper(m, capacity=CAPACITY, device=device)

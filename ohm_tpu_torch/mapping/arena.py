@@ -154,24 +154,27 @@ class VoxelArena:
 
         Regions used by this batch are pinned.  Raises CacheFull when the
         batch alone needs more regions than the arena holds, NeedsEviction
-        when eviction is needed and not allowed."""
-        self.batch_counter += 1
+        when eviction is needed and not allowed; NeedsEviction leaves the
+        arena as it was (no LRU stamp, no stat), so the call that follows
+        it counts as the only one."""
         keys = np.asarray(region_keys, dtype=np.int64).reshape(-1, 3)
-        missing = []
+        present, missing = [], []
         for key in map(tuple, keys):
             key = (int(key[0]), int(key[1]), int(key[2]))
             slot = self.slot_of.get(key)
             if slot is not None:
-                self.last_used[slot] = self.batch_counter
-                self.stats["hits"] += 1
+                present.append(slot)
             else:
                 missing.append(key)
-        if not missing:
-            return
-        self.stats["misses"] += len(missing)
         need = len(missing) - len(self.free_slots)
         if need > 0 and not allow_evict:
             raise NeedsEviction(f"{need} evictions required")
+        self.batch_counter += 1
+        self.last_used[present] = self.batch_counter
+        self.stats["hits"] += len(present)
+        if not missing:
+            return
+        self.stats["misses"] += len(missing)
         if need > 0:
             last = self.last_used
             cand = np.flatnonzero(

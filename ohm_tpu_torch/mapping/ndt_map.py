@@ -27,6 +27,7 @@ map holds it.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import numpy as np
@@ -46,6 +47,7 @@ class TorchNdtMap(TorchRayMapper):
     _rayflow_intensity = True
     _stop_needs_segments = False
     _STAT_NAMES = TorchRayMapper._STAT_NAMES + ("ndt_overflow", "ndt_flagged")
+    _DROPPED_WHAT = "fused row_cap exceeded: the deposit dropped voxel-lasts"
 
     def __init__(self, map_obj, params: NdtParams | None = None, capacity: int = 1024,
                  validate: bool = False, miss_k: int | str = _AUTO_MISS_K,
@@ -100,8 +102,18 @@ class TorchNdtMap(TorchRayMapper):
             miss_k=self.miss_k,
         )
 
-    def _integrate_device(self, b: dict, cfg: IntegrateConfig) -> dict:
+    def _integrate_device(self, b: dict, cfg: IntegrateConfig, n_rays: int,
+                          n_segments: int) -> dict:
+        """One batch through ops.integrate_ndt: with traversal and a row_cap
+        that _fused_row_cap_for grants (ndt_map.py:83-88), its standard
+        counts take the fused row-local deposit; row_cap and miss_k size
+        after the batch (ndt_map.py:121-124)."""
+        rc = self._fused_row_cap_for(n_segments, cfg.group_cap)
+        if rc:
+            cfg = dataclasses.replace(cfg, row_cap=rc)
         stats = integrate_ndt(self.arena.layers, b, self._ndt_config(cfg))
+        self.last_route = stats.pop("route")
+        self._auto_size_row_cap(stats, n_segments)
         self._auto_size_miss_k(stats)
         return stats
 

@@ -20,19 +20,24 @@ most one region edge long), as the reference does.  Per batch:
   expand         ops.integrate.expand_records (the walk front end: kernel K1
                  on the rayflow wire, the plain walk on the segmented one)
   sort + apply   ops.integrate.apply_records (torch.sort, kernel K2, the
-                 traversal sums)
+                 traversal sums), or apply_records_fused, or apply_delta
   samples        ops.integrate.apply_sample_layers (mean, touch, incident)
   sync           sync_voxels -> host OccupancyMap chunks
 
-Under STOP_ON_FIRST_OCCUPIED the segmented batch runs the monolith
-(ops.integrate.integrate_occupancy: the ordered walk, the stop masks, K2).
-On a CUDA device the kernels run; with ``device="cpu"`` their plain
-PyTorch versions do, with bit-identical results.  The host map is the
-port's own (``ohm_tpu_torch.core.map.OccupancyMap``).
-``integrate_rays_async`` queues batches for one worker thread, in order;
+Each batch takes the route the reference's _dispatch gives it
+(tpu_map.py:570-624, _integrate_device): the monolith
+(ops.integrate.integrate_occupancy: the ordered walk, the stop masks, K2)
+under STOP_ON_FIRST_OCCUPIED or OHM_MONOLITH=1; the delta path where
+``delta_path`` is set and the batch is eligible; the fused row-local apply
+where OHM_FUSED allows it and the sized ``row_cap`` compacts the rows; else
+the split apply.  On a CUDA device the kernels run; with ``device="cpu"``
+their plain PyTorch versions do, with bit-identical results.  The host map
+is the port's own (``ohm_tpu_torch.core.map.OccupancyMap``).
+``integrate_rays_async`` queues batches for one worker thread, in order; it
+takes up to OHM_COALESCE queued batches at once, uploads their wires in one
+copy and runs a full, sized group as one chain (OHM_CHAIN);
 ``flush``, ``sync_voxels`` and ``stats`` wait for it and raise what it
-raised.  The TPU levers (fused, delta, chained dispatch, coalesced
-transfers, scatter windows) are not ported.
+raised.
 
 Subclasses (mapping.ndt_map.TorchNdtMap, mapping.tsdf_map.TorchTsdfMap)
 override the hooks: the arena's layers ``_arena_layers``, the wire's
@@ -45,6 +50,9 @@ leaves the rayflow wire ``_stop_needs_segments``, the segmented config
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import logging
+import os
 import queue
 import threading
 
@@ -55,13 +63,14 @@ from ohm_tpu_torch.core.layout import (INCIDENT_NORMAL_LAYER, MEAN_LAYER, TOUCH_
                                        TRAVERSAL_LAYER)
 from ohm_tpu_torch.core.rayflags import RayFlag, normalize_reverse_walk
 from ohm_tpu_torch.device import resolve_device
-from ohm_tpu_torch.mapping.arena import CacheFull, VoxelArena
+from ohm_tpu_torch.mapping.arena import CacheFull, NeedsEviction, VoxelArena
 from ohm_tpu_torch.mapping.batch import (
     build_wire, fill_corner_slots, frac_dict_of, max_steps_for, prepare_ray_batch,
     prepare_rayflow, rayflow_wire, snake_perm)
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.ddawalk import walk_total_cap
-from ohm_tpu_torch.ops.integrate import expand_records, integrate_decoded
+from ohm_tpu_torch.ops.integrate import (apply_decoded, delta_path_ok, expand_records,
+                                         integrate_chain, integrate_delta, integrate_occupancy)
 from ohm_tpu_torch.ops.wire import decode
 
 #: The side layers the occupancy mapper integrates.
@@ -88,11 +97,16 @@ class TorchRayMapper:
     #: rayflow wire under it, as the reference's do.
     _stop_needs_segments = True
     #: Per-batch device stats summed into ``stats`` by _drain_stats.
-    _STAT_NAMES = ("missed_updates", "overflow", "compaction_dropped")
+    _STAT_NAMES = ("missed_updates", "overflow", "compaction_dropped", "dropped_updates")
+    #: What ``validate`` says when a batch dropped voxel updates.
+    _DROPPED_WHAT = ("scatter_cap exceeded (the delta window or the fused row window): "
+                     "raise TorchRayMapper(scatter_cap=...)")
 
     def __init__(self, map_obj, capacity: int = 1024, validate: bool = False,
                  stream_budget: int = 1 << 21, device="cuda",
-                 segment_length: float | None = None, rayflow: bool = True):
+                 segment_length: float | None = None, rayflow: bool = True,
+                 scatter_pad: int = 1 << 22, scatter_cap: int | str = "auto",
+                 delta_path: bool = False):
         self.device = resolve_device(device)
         self.map = map_obj
         #: Take the rayflow wire where a batch allows it; False sends every
@@ -121,6 +135,37 @@ class TorchRayMapper:
          self.with_incident) = (map_obj.layer_index(name) >= 0 for name in SIDE_LAYERS)
         names, encoding = self._arena_layers()
         self.arena = VoxelArena(capacity, self.region_shift, self.device, names, encoding)
+        #: The reference's scratch-tail length: it bounds the delta window
+        #: and the fused merge stream (the port's arena has no tail).
+        self.scatter_pad = int(scatter_pad)
+        #: The delta path's window of touched voxels a batch.  "auto": the
+        #: fourth batch's touched count read back once, 2x headroom, a
+        #: power of two, grown only (_auto_size_scatter_cap); an int pins
+        #: it, 0 disables.  ``delta_path`` routes eligible batches
+        #: (ops.integrate.delta_path_ok) to apply_delta within it.
+        self._auto_scatter = scatter_cap == "auto"
+        self.scatter_cap = 0 if self._auto_scatter else int(scatter_cap)
+        self._cap_rays = 0
+        self.delta_path = bool(delta_path)
+        #: OHM_FUSED: "1" (default) routes a batch to the fused row-local
+        #: apply once ``row_cap`` is sized and its rows compact
+        #: (_fused_row_cap_for), "2" also where they do not, "0" never.
+        fused_env = os.environ.get("OHM_FUSED", "1")
+        self.fused = fused_env != "0"
+        self._fused_force = fused_env == "2"
+        self.row_cap = 0
+        self._row_cap_rays = 0
+        #: OHM_MONOLITH=1 sends every batch through the monolith
+        #: (ops.integrate.integrate_occupancy); OHM_CHAIN=0 turns off the
+        #: worker's chained groups; OHM_COALESCE batches (4) share one
+        #: upload in the worker.
+        self.monolith = os.environ.get("OHM_MONOLITH", "0") == "1"
+        self.chain = os.environ.get("OHM_CHAIN", "1") != "0"
+        self._coalesce = int(os.environ.get("OHM_COALESCE", "4"))
+        #: The route the last batch took: "monolith", "delta", "fused",
+        #: "split" (NDT: "fused", "k3"; TSDF: "tsdf"); "chain_fused" or
+        #: "chain_split" for a chained group.
+        self.last_route = None
         self._config(0)  # validate int32 addressing headroom at construction
         # Monotone shape caches (step bucket, walk cap, group cap, K):
         # grow only, as the reference's compile-shape caches do.
@@ -136,6 +181,7 @@ class TorchRayMapper:
         self._queue = None
         self._worker = None
         self._worker_error = None
+        self._staged = []  # pinned upload buffers with the event of their copy
 
     def _arena_layers(self) -> tuple[list[str], str]:
         """The arena's layers and its occupancy encoding."""
@@ -191,10 +237,13 @@ class TorchRayMapper:
             return max(512, -(-(gmax + max(128, gmax >> 6)) // 256) * 256)
         return max(512, -(-(gmax + max(256, gmax >> 4)) // 512) * 512)
 
-    def _rayflow_setup_host(self, rays, timestamps, intensities, ray_update_flags):
+    def _rayflow_setup_host(self, rays, timestamps, intensities, ray_update_flags,
+                            allow_evict: bool = True):
         """Host half of a rayflow batch: allocate its regions and build its
         wire.  Returns (numpy uint8 wire, cfg, n_rays), or None where the
-        arena or the batch leaves the rayflow wire."""
+        arena or the batch leaves the rayflow wire.  With ``allow_evict``
+        False an allocation that would evict raises NeedsEviction (the
+        worker's group holds wires that name slots)."""
         if self.arena.capacity > RAYFLOW_MAX_CAPACITY:
             return None
         rf = prepare_rayflow(self.map, rays, timestamps=timestamps,
@@ -204,7 +253,7 @@ class TorchRayMapper:
         if rf is None:
             return None
         self._k_cache_rf = max(self._k_cache_rf, rf.table_k)
-        self.arena.ensure_regions(rf.region_keys, host_map=self.map)
+        self.arena.ensure_regions(rf.region_keys, host_map=self.map, allow_evict=allow_evict)
         # Candidate dictionary: u8 indices for <= 255 regions, u16 for
         # <= 2047, else full i32 candidates.
         nreg = len(rf.region_keys)
@@ -311,7 +360,56 @@ class TorchRayMapper:
             rayw_intensity=self._rayflow_intensity,
             unordered_walk=bool(group_cap) and not (
                 int(ray_flags) & RayFlag.STOP_ON_FIRST_OCCUPIED),
+            scatter_cap=self.scatter_cap,
+            scatter_pad=self.scatter_pad,
         )
+
+    def _auto_size_scatter_cap(self, stats, n_rays) -> None:
+        """Size the delta window once from the fourth batch's touched count
+        (one read back; 2x headroom, a power of two, at most scatter_pad),
+        and again, grown only, for a batch with more rays than the one that
+        sized it (tpu_map.py:348-370)."""
+        if not (self._auto_scatter and (self.scatter_cap == 0 or n_rays > self._cap_rays)):
+            return
+        if self.scatter_cap == 0 and self._stats["batches"] < 3:
+            return
+        t = int(stats["touched"])
+        cap = 1 << 16
+        while cap < 2 * t:
+            cap *= 2
+        self.scatter_cap = max(self.scatter_cap, min(cap, self.scatter_pad))
+        self._cap_rays = n_rays
+
+    def _fused_row_cap_for(self, n_segments: int, group_cap: int) -> int:
+        """The fused apply's row_cap where a batch may take it, else 0
+        (tpu_map.py:372-393): OHM_FUSED on, row_cap sized for at least half
+        this many segments, at most 16384 segments and a group cap below
+        2^16 (the 16-bit packed counts), and the row window compacting the
+        rows (row_cap < group_cap) unless OHM_FUSED=2."""
+        if (self.fused and self.row_cap > 0 and 0 < n_segments <= 16384
+                and n_segments <= 2 * self._row_cap_rays
+                and 0 < group_cap < (1 << 16)
+                and (self.row_cap < group_cap or self._fused_force)):
+            return self.row_cap
+        return 0
+
+    def _auto_size_row_cap(self, stats, n_rays) -> None:
+        """Size row_cap from the expand's 'row_lasts_max' (tpu_map.py:395-415):
+        from the fourth batch, 2x headroom, a power of two (at least 256),
+        grown only, and again for a batch with over twice the rays that
+        sized it; it reads the stat back on those batches only."""
+        if not (self.fused and (self.row_cap == 0 or n_rays > 2 * self._row_cap_rays)):
+            return
+        if self.row_cap == 0 and self._stats["batches"] < 3:
+            return
+        m = int(stats.get("row_lasts_max", -1))
+        if m < 0:
+            return
+        cap = 256
+        while cap < 2 * m:
+            cap *= 2
+        self.row_cap = max(self.row_cap, cap)
+        self._row_cap_rays = n_rays
 
     def integrate_rays(self, rays, intensities=None, timestamps=None,
                        ray_update_flags: int = 0) -> int:
@@ -327,20 +425,23 @@ class TorchRayMapper:
                              ray_update_flags: int = 0) -> int:
         """Queue a ray batch for the worker thread; returns its ray count N.
 
-        One worker integrates the queued batches in order, each as
-        integrate_rays would, so host prep of a batch overlaps the device
-        work of the one before.  ``flush`` (and ``sync_voxels``, ``stats``)
-        waits for the queue and raises the first error the worker met."""
+        One worker integrates the queued batches in order, so host prep of
+        a batch overlaps the device work of the ones before; it takes up to
+        OHM_COALESCE queued batches at once and uploads their rayflow wires
+        in one copy (_integrate_group).  ``flush`` (and ``sync_voxels``,
+        ``stats``) waits for the queue and raises the first error the
+        worker met."""
         ray_update_flags = normalize_reverse_walk(ray_update_flags)
         if self._worker is None:
-            self._queue = queue.Queue(maxsize=4)
+            self._queue = queue.Queue(maxsize=max(4, self._coalesce))
             self._worker = threading.Thread(target=self._work, daemon=True)
             self._worker.start()
         self._queue.put((rays, intensities, timestamps, ray_update_flags))
         return np.asarray(rays).reshape(-1, 3).shape[0] // 2
 
     def _work(self) -> None:
-        """The worker: integrate queued batches in order, for the mapper's life.
+        """The worker: integrate queued batches in order, up to OHM_COALESCE
+        at a time, for the mapper's life.
 
         The current device is per thread, so the worker enters the mapper's
         own.  It launches on that device's current stream, the same one the
@@ -350,14 +451,140 @@ class TorchRayMapper:
                    else contextlib.nullcontext())
         with on_card:
             while True:
-                item = self._queue.get()
+                items = [self._queue.get()]
+                while len(items) < self._coalesce:
+                    try:
+                        items.append(self._queue.get_nowait())
+                    except queue.Empty:
+                        break
                 try:
-                    self._integrate_with_retry(*item)
+                    self._integrate_group(items)
                 except Exception as e:  # raised again by flush
                     if self._worker_error is None:
                         self._worker_error = e
                 finally:
-                    self._queue.task_done()
+                    for _ in items:
+                        self._queue.task_done()
+
+    def _integrate_group(self, items) -> None:
+        """Integrate queued batches in order (tpu_map.py:701-767): consecutive
+        rayflow batches of one wire length form a group, whose wires go up
+        in one copy (_upload) and run as one chain (_dispatch_chain) or row
+        by row.  While a group is pending no allocation may evict (its wires
+        name slots): NeedsEviction flushes the group first.  A batch that
+        cannot join (the segmented wire, STOP_ON_FIRST_OCCUPIED, a stream
+        budget presplit, CacheFull, another wire length) flushes the group
+        and takes the synchronous path.  A batch that raises is skipped and
+        the others are integrated; the first error is raised at the end
+        (the reference's worker drops the rest of the group instead)."""
+        pending = []  # (numpy wire, cfg, n_rays, flags)
+        error = None
+
+        def flush():
+            if not pending:
+                return
+            group = list(pending)
+            pending.clear()
+            stacked = self._upload([p[0] for p in group])
+            cfg = self._chain_cfg(group) if len(group) > 1 else None
+            if cfg is not None:
+                self._dispatch_chain(stacked, group, cfg)
+            else:
+                for row, (_, row_cfg, n_rays, _) in zip(stacked, group):
+                    self._dispatch(row, row_cfg, n_rays)
+
+        def add(rays, intensities, timestamps, fl):
+            r = np.asarray(rays, dtype=np.float64).reshape(-1, 3)
+            presplit = (self.stream_budget and r.shape[0] // 2 > 256
+                        and self._stream_estimate(r) > self.stream_budget)
+            if not self.rayflow or presplit or fl & RayFlag.STOP_ON_FIRST_OCCUPIED:
+                flush()
+                self._integrate_with_retry(r, intensities, timestamps, fl)
+                return
+            self.map.touch()
+            try:
+                setup = self._rayflow_setup_host(r, timestamps, intensities, fl,
+                                                 allow_evict=not pending)
+            except NeedsEviction:
+                flush()
+                try:
+                    setup = self._rayflow_setup_host(r, timestamps, intensities, fl)
+                except CacheFull:
+                    self._split_and_integrate(r, intensities, timestamps, fl)
+                    return
+            except CacheFull:
+                flush()
+                self._split_and_integrate(r, intensities, timestamps, fl)
+                return
+            if setup is None:  # the segmented wire
+                flush()
+                self._integrate_with_retry(r, intensities, timestamps, fl)
+                return
+            wire, cfg, n_rays = setup
+            if pending and wire.shape != pending[0][0].shape:
+                flush()
+            pending.append((wire, cfg, n_rays, fl))
+
+        for item in items:
+            try:
+                add(*item)
+            except Exception as e:
+                error = error or e
+        flush()
+        if error is not None:
+            raise error
+
+    def _upload(self, wires) -> torch.Tensor:
+        """The wires stacked, u8[k, L], in one host-to-device copy.  On a card
+        the stack is written into a pinned buffer and copied without
+        blocking the host (a pageable copy synchronizes the stream); the
+        buffer is kept, with an event recorded after its copy, until that
+        event has passed."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.stack(wires)).to(self.device)
+        staged = torch.empty((len(wires), wires[0].shape[0]), dtype=torch.uint8,
+                             pin_memory=True)
+        np.stack(wires, out=staged.numpy())
+        stacked = staged.to(self.device, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        self._staged = [(buf, ev) for buf, ev in self._staged if not ev.query()]
+        self._staged.append((staged, copied))
+        return stacked
+
+    def _chain_cfg(self, pending):
+        """The one config under which a pending group runs as a chain, with
+        its row_cap resolved, or None (tpu_map.py:769-809): OHM_CHAIN on, no
+        monolith or delta routing, the occupancy mapper's own device step, a
+        full group (OHM_COALESCE batches) of equal configs, and the windows
+        sized (the chain's summed stats cannot size them)."""
+        if (not self.chain or self.monolith or self.delta_path
+                or type(self)._integrate_device is not TorchRayMapper._integrate_device):
+            return None
+        if len(pending) != self._coalesce:
+            return None
+        cfg0 = pending[0][1]
+        if any(p[1] != cfg0 for p in pending[1:]):
+            return None
+        if self.fused:
+            if self.row_cap == 0:
+                return None
+            rcs = {self._fused_row_cap_for(p[2], cfg0.group_cap) for p in pending}
+            if len(rcs) != 1:
+                return None
+            rc = rcs.pop()
+            if rc > 0:
+                return dataclasses.replace(cfg0, row_cap=rc)
+        if self._auto_scatter and self.scatter_cap == 0:
+            return None
+        return cfg0
+
+    def _dispatch_chain(self, stacked, pending, cfg) -> None:
+        """One chained group (ops.integrate.integrate_chain): every row of
+        the stacked upload in order under ``cfg``; one stats entry."""
+        stats = integrate_chain(self.arena.layers, stacked, cfg, len(pending))
+        self.last_route = "chain_fused" if cfg.row_cap else "chain_split"
+        self._record([p[2] for p in pending], [p[2] for p in pending], stats)
 
     def flush(self) -> None:
         """Wait until the worker has integrated every queued batch; raise the
@@ -442,26 +669,55 @@ class TorchRayMapper:
         """Decode an upload already on the device (a rayflow wire, or a dict
         of a segmented batch's tensors) and integrate it; the arena updates
         in place and the stats stay on the device until read."""
-        stats = self._integrate_device(decode(upload, cfg), cfg)
-        self._stats["rays"] += n_rays
-        self._stats["segments"] += n_rays if n_segments is None else n_segments
-        self._stats["batches"] += 1
+        n_segments = n_rays if n_segments is None else n_segments
+        stats = self._integrate_device(decode(upload, cfg), cfg, n_rays, n_segments)
+        self._record([n_rays], [n_segments], stats)
+        return n_rays
+
+    def _record(self, rays, segments, stats: dict) -> None:
+        """Count dispatched batches (their ray and segment counts) and keep
+        their stats; under ``validate`` read them back and raise on any
+        missed, overflowing, compaction-dropped or dropped update."""
+        self._stats["rays"] += sum(rays)
+        self._stats["segments"] += sum(segments)
+        self._stats["batches"] += len(rays)
         self._pending_stats.append(stats)
         if self.validate:
             self._drain_stats()
             for name, what in (("missed_updates", "slot resolution missed: host allocation bug"),
                                ("overflow", "walk step cap exceeded: step bucket bug"),
                                ("compaction_dropped", "group compaction dropped live records: group cap bug"),
-                               ("dropped_updates", "the deposit dropped voxel updates")):
+                               ("dropped_updates", self._DROPPED_WHAT)):
                 if self._stats[name]:
                     raise RuntimeError(f"{name}={self._stats[name]}: {what}")
-        return n_rays
 
-    def _integrate_device(self, b: dict, cfg: IntegrateConfig) -> dict:
-        """One decoded batch into the arena (ops.integrate.integrate_decoded);
-        returns its stats.  The expand phase is this module's name for it,
+    def _integrate_device(self, b: dict, cfg: IntegrateConfig, n_rays: int,
+                          n_segments: int) -> dict:
+        """One decoded batch into the arena, routed as the reference's
+        _dispatch routes it (tpu_map.py:570-624): the monolith under
+        STOP_ON_FIRST_OCCUPIED or OHM_MONOLITH=1; the delta path where
+        ``delta_path`` is set, delta_path_ok(cfg) holds and the batch has no
+        more rays than the one that sized the window; else the expand
+        (row_cap sized from its stat), then the fused apply where
+        _fused_row_cap_for allows it, or the split one.  Returns the
+        batch's stats.  The expand phase is this module's name for it,
         which a test may wrap."""
-        return integrate_decoded(self.arena.layers, b, cfg, expand=expand_records)
+        layers = self.arena.layers
+        if self.monolith or cfg.ray_flags & RayFlag.STOP_ON_FIRST_OCCUPIED:
+            self.last_route = "monolith"
+            return integrate_occupancy(layers, b, cfg)
+        if (self.delta_path and delta_path_ok(cfg)
+                and not (self._auto_scatter and n_rays > self._cap_rays)):
+            self.last_route = "delta"
+            return integrate_delta(layers, b, cfg, expand=expand_records)
+        records, stats = expand_records(b, cfg)
+        self._auto_size_row_cap(stats, n_segments)
+        rc = self._fused_row_cap_for(n_segments, cfg.group_cap)
+        self.last_route = "fused" if rc else "split"
+        stats.update(apply_decoded(layers, records, b,
+                                   dataclasses.replace(cfg, row_cap=rc) if rc else cfg))
+        self._auto_size_scatter_cap(stats, n_rays)
+        return stats
 
     def _drain_stats(self) -> list[dict]:
         """Read the pending batches' stats back and sum _STAT_NAMES into
@@ -472,6 +728,21 @@ class TorchRayMapper:
             for k, v in stats.items():
                 self._stats[k] += v
         self._pending_stats.clear()
+        new_drops = sum(s["dropped_updates"] for s in drained)
+        if new_drops:
+            # Batches past the sized windows lost their over-window
+            # voxel-lasts; widen the windows for the next ones, and say so
+            # (tpu_map.py:878-895).
+            esc = []
+            if self._auto_scatter and 0 < self.scatter_cap < self.scatter_pad:
+                self.scatter_cap = min(self.scatter_cap * 2, self.scatter_pad)
+                esc.append(f"scatter_cap->{self.scatter_cap}")
+            if self.row_cap:
+                self.row_cap *= 2
+                esc.append(f"row_cap->{self.row_cap}")
+            logging.getLogger("ohm_tpu_torch").warning(
+                "integrate dropped %d voxel updates (deposit window exceeded); escalating %s",
+                new_drops, ", ".join(esc) or "nothing (pinned caps)")
         return drained
 
     def sync_voxels(self):

@@ -27,7 +27,6 @@ from ohm_tpu_torch.oracle.tsdf import TsdfOptions
 class TorchTsdfMap(TorchRayMapper):
     """TSDF integrator; ``options`` are the reference's TsdfOptions."""
 
-    _STAT_NAMES = TorchRayMapper._STAT_NAMES + ("dropped_updates",)
     _stop_needs_segments = False
 
     def __init__(self, map_obj, options: TsdfOptions | None = None, capacity: int = 1024,
@@ -58,5 +57,7 @@ class TorchTsdfMap(TorchRayMapper):
             per_visit=bool(o.per_visit),
         )
 
-    def _integrate_device(self, b: dict, cfg: IntegrateConfig) -> dict:
+    def _integrate_device(self, b: dict, cfg: IntegrateConfig, n_rays: int,
+                          n_segments: int) -> dict:
+        self.last_route = "tsdf"
         return integrate_tsdf(self.arena.layers, b, self._tsdf_config(cfg))

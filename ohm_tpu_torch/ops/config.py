@@ -2,8 +2,8 @@
 
 ``IntegrateConfig`` is the counterpart of ``IntegrateConfig`` in
 ``ohm_tpu/ops/integrate.py``, holding only the fields the port's paths read.
-The TPU switches (``scatter_cap``, ``row_cap``, ``pallas_*``, the scatter
-tail) are left out.  ``NdtConfig`` and ``TsdfConfig`` are the
+The Pallas switches (``pallas_*``) are left out: the port's kernels run
+wherever the reference's would on a TPU.  ``NdtConfig`` and ``TsdfConfig`` are the
 counterparts of ``NdtConfig`` in ``ohm_tpu/ops/integrate_ndt.py`` and
 ``TsdfConfig`` in ``ohm_tpu/ops/integrate_tsdf.py``.
 
@@ -78,6 +78,19 @@ class IntegrateConfig:
     #: 12, the TSDF mapper's); else end_frac with the mean layer (10) or
     #: neither (7).
     wire_tsdf: bool = False
+    #: The delta path's window (ops.integrate.apply_delta): touched voxels
+    #: past it in a batch are dropped and counted in
+    #: stats['dropped_updates'].  0 = no window (and no delta path).
+    scatter_cap: int = 0
+    #: The reference's scratch tail length: the largest delta window and
+    #: the largest fused merge stream (it clamps the fused row window,
+    #: ops.integrate.apply_records_fused).  The port's arena has no tail:
+    #: its pad entries add the identity at spread voxels
+    #: (ops.integrate._pad_targets).
+    scatter_pad: int = 1 << 22
+    #: The fused row-local apply's unique-voxel budget per compaction row
+    #: (ops.integrate.apply_records_fused); 0 runs the split apply.
+    row_cap: int = 0
 
     def __post_init__(self):
         # Flat arena addresses and sort keys are int32; the key packs

@@ -24,6 +24,15 @@ first voxel that was occupied at batch start (across the ray's segments);
 its occupancy goes through K2 with the masked records' keys set to the
 sentinel.
 
+Two more applies take K1's records where the mapper routes a batch to
+them, as the reference's does: the fused row-local apply
+(``apply_records_fused``: row sorts of the compaction rows, one small merge
+sort, exact integer count sums, a fresh count plane and the sweep over the
+arena) and the delta path (``apply_delta``: counts off positions, the
+voxel-lasts' int64 (voxel, delta) keys cut to a window, an ``index_add_``
+and a clamp over the arena).  ``integrate_chain`` runs the rows of one
+stacked upload through the expand and the split or fused apply in order.
+
 Every sort that carries a payload is stable (torch.sort is not on CUDA
 otherwise), and every float sum runs in a fixed order (ops.segments), so
 two runs give the same bits.  The updates are in place; a scatter writes
@@ -39,6 +48,7 @@ from ohm_tpu_torch.core.rayflags import RayFlag
 from ohm_tpu_torch.ops import deposit_cuda, expand_cuda, segments, subvoxel
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.ddawalk import walk_rays, walk_rays_unordered
+from ohm_tpu_torch.ops.wire import decode
 
 
 def resolve_slots(voxels, cfg: IntegrateConfig, tcand, gmeta):
@@ -194,6 +204,7 @@ def expand_records(b: dict, cfg: IntegrateConfig):
     if with_trav:
         walk_trav = walk_trav.reshape(-1)
     compaction_dropped = torch.zeros((), dtype=torch.int64, device=walk_keys.device)
+    row_lasts_max = None
     G = cfg.group_size
     if cfg.group_cap and B % G == 0 and cfg.group_cap < G * S:
         # Sentinel keys sort to the back of each row, so cutting at group_cap
@@ -213,6 +224,7 @@ def expand_records(b: dict, cfg: IntegrateConfig):
         rows = rows[:, :cfg.group_cap]
         compaction_dropped = n_valid - (rows < limit).sum()
         walk_keys = rows.reshape(-1)
+        row_lasts_max = _row_lasts_max(rows, limit)
 
     end_keys = torch.where(end_active, end_flat, torch.full_like(end_flat, sentinel))
     key = torch.cat([walk_keys, (end_keys << 1) | end_is_hit.to(torch.int32)])
@@ -226,8 +238,18 @@ def expand_records(b: dict, cfg: IntegrateConfig):
         "applied_updates": n_valid + (end_keys != sentinel).sum(),
         "overflow": (aux["overflow"] & ray_valid).sum() + aux["truncated"],
         "compaction_dropped": compaction_dropped,
+        "row_lasts_max": (torch.full((), -1, dtype=torch.int64, device=key.device)
+                          if row_lasts_max is None else row_lasts_max),
     }
     return records, stats
+
+
+def _row_lasts_max(rows, limit: int):
+    """The largest count of distinct live keys (below ``limit``) in one row
+    of row-sorted keys [R, W]: the fused apply's row budget is sized from it
+    (integrate.py:985-993).  7 device operations."""
+    lasts = ((rows[:, 1:] != rows[:, :-1]) & (rows[:, :-1] < limit)).sum(dim=1)
+    return (lasts + (rows[:, -1] < limit)).max()
 
 
 def _compact_lasts(ids_s: torch.Tensor, last: torch.Tensor, sentinel: int) -> torch.Tensor:
@@ -258,6 +280,250 @@ def apply_records(occupancy, records: dict, cfg: IntegrateConfig, traversal=None
     ids = ids_s[at].long()
     traversal[ids] = traversal[ids] + sums[at]
     return touched
+
+
+def sorted_hit_miss_counts(key_s):
+    """Per-voxel hit and miss counts of a SORTED (flat << 1 | hit) key
+    stream, read off positions (integrate.py:1019-1046): a voxel's records
+    order [misses, hits], so the starts of its voxel run and of its key run,
+    carried to each position by a cumulative maximum, give both counts at
+    its last record.  Returns (ids, first, last, n_hit, n_miss); the counts
+    are int32 (the reference's f32 holds the same integers) and meaningful
+    at voxel-last positions."""
+    ids_s = key_s >> 1
+    first, last = segments._first_last(ids_s)
+    run_first = segments._first_last(key_s)[0]
+    pos = torch.arange(key_s.shape[0], dtype=torch.int32, device=key_s.device)
+    neg = -(1 << 30)
+    p_vox = segments.cummax(torch.where(first, pos, neg), neg)
+    p_run = segments.cummax(torch.where(run_first, pos, neg), neg)
+    is_hit = (key_s & 1) == 1
+    n_hit = torch.where(is_hit, pos - p_run + 1, 0)
+    n_miss = torch.where(is_hit, p_run - p_vox, pos - p_vox + 1)
+    return ids_s, first, last, n_hit, n_miss
+
+
+def sorted_nonneg_sums(vals_s, first):
+    """Segment sums of a sorted non-negative f32 stream, valid at segment
+    lasts, in blocked.segment_sums's order (integrate.py:1049-1058)."""
+    return segments.segment_sums(vals_s, first)
+
+
+def _segment_hit_miss_sums(hits, misses, first):
+    """Exact per-segment sums of non-negative int32 hit and miss counts at
+    every position of a sorted stream (``first`` marks starts): one int64
+    prefix sum of hits << 32 | misses (a segment's misses stay below 2^32,
+    so the difference of two prefixes holds both sums), less its value
+    before the segment's first record.  Returns (hit sums, miss sums)."""
+    packed = (hits.to(torch.int64) << 32) | misses.to(torch.int64)
+    cs = torch.cumsum(packed, dim=0)
+    pos = torch.arange(packed.shape[0], dtype=torch.int64, device=packed.device)
+    start = segments.cummax(torch.where(first, pos, 0), 0)
+    tot = cs - (cs - packed)[start]
+    return tot >> 32, tot & 0xFFFFFFFF
+
+
+def _fused_row_partials(ids2, weight_f, trav_f, cap2: int, cfg: IntegrateConfig):
+    """The fused apply's level 1 (integrate.py:1244-1299): per-row partial
+    miss counts (and traversal sums) at each row's voxel-lasts, compacted
+    into [R, cap2] by one row sort.  ``ids2`` [R, cap] is row-sorted (the
+    expand compaction's sort); ``weight_f`` [R*cap] f32 weighs each record
+    (0 masks one out; None counts every record, by run lengths), ``trav_f``
+    [R*cap] the records' traversal or None.  Returns (kc i32[R, cap2],
+    pc i32[R, cap2] miss counts, tc f32[R, cap2] or None, dropped): the
+    lasts past cap2 in a row drop (its highest ids), and ``dropped`` counts
+    them."""
+    R, cap = ids2.shape
+    if cap >= 1 << 16:
+        # The merge packs a row's counts into 16 bits.
+        raise ValueError("fused row width must fit 16-bit per-row run counts")
+    sent = cfg.sentinel
+    neq = ids2[:, 1:] != ids2[:, :-1]
+    edge = torch.ones((R, 1), dtype=torch.bool, device=ids2.device)
+    first_f = torch.cat([edge, neq], dim=1).reshape(-1)
+    real_last2 = torch.cat([neq, edge], dim=1) & (ids2 != sent)
+    if weight_f is None:
+        pos = torch.arange(R * cap, dtype=torch.int32, device=ids2.device)
+        neg = -(1 << 30)
+        cnt = pos - segments.cummax(torch.where(first_f, pos, neg), neg) + 1
+    else:
+        # Integer-valued f32 sums below 2^16: exact.
+        cnt = segments.segment_sums(weight_f, first_f).to(torch.int32)
+    packed_w = torch.where(real_last2, cnt.reshape(R, cap), 0)
+    key2 = torch.where(real_last2, ids2, sent)
+    # Equal keys in a row are sentinels with zero payloads (a voxel's last
+    # is unique in its row): any order of them gives the same rows.
+    key2, order = torch.sort(key2, dim=1)
+    kc = key2[:, :cap2]
+    order = order[:, :cap2]
+    realc = kc != sent
+    pc = torch.where(realc, torch.gather(packed_w, 1, order), 0)
+    tc = None
+    if trav_f is not None:
+        trav2 = sorted_nonneg_sums(trav_f, first_f).reshape(R, cap)
+        tc = torch.where(realc, torch.gather(trav2, 1, order), 0.0)
+    dropped = real_last2.sum() - realc.sum()
+    return kc, pc, tc, dropped
+
+
+def _pad_targets(real, ids, n_vox: int):
+    """Scatter targets of a stream [M]: ``ids`` (int64) where ``real``, and
+    elsewhere the entry's position modulo ``n_vox``, so that pad entries,
+    which add the identity (0, or -0.0 to f32), spread over the arena.  The
+    reference sends them to a scratch tail of unique targets
+    (integrate.py:1335-1338); sent to the one sentinel element they
+    serialise on the card (~1M writes to one address: the fused apply took
+    139-157 ms a batch that way on an H100)."""
+    spread = torch.arange(real.shape[0], dtype=torch.int64, device=real.device) % n_vox
+    return torch.where(real, ids.to(torch.int64), spread)
+
+
+def _fused_merge(kc, pc, tc, ids_e, packed_e, trav_e, cfg: IntegrateConfig):
+    """The fused apply's level 2 (integrate.py:1302-1340): one small stable
+    sort of the row partials and the end entries (packed hit << 16 | miss,
+    int32 bits), exact integer sums of each voxel's hits and misses and f32
+    sums of its traversal, at its last entry.  Returns (idx i64[M]: the
+    voxel at each voxel-last entry, a pad target elsewhere (_pad_targets),
+    its hit and miss counts there (0 elsewhere), real_last, the traversal
+    sums or None)."""
+    sent = cfg.sentinel
+    ids_m = torch.cat([kc.reshape(-1), ids_e])
+    M = ids_m.shape[0]
+    if M > cfg.scatter_pad:
+        raise ValueError(f"fused merge stream {M} exceeds scatter_pad {cfg.scatter_pad}")
+    ids_s, order = torch.sort(ids_m, stable=True)
+    packed_s = torch.cat([pc.reshape(-1), packed_e])[order]
+    first_s, last_s = segments._first_last(ids_s)
+    n_hit, n_miss = _segment_hit_miss_sums((packed_s >> 16) & 0xFFFF, packed_s & 0xFFFF,
+                                           first_s)
+    real_last = last_s & (ids_s != sent)
+    idx = _pad_targets(real_last, ids_s, sent)
+    trav_tot = None
+    if tc is not None:
+        trav_tot = sorted_nonneg_sums(torch.cat([tc.reshape(-1), trav_e])[order], first_s)
+    return idx, torch.where(real_last, n_hit, 0), torch.where(real_last, n_miss, 0), \
+        real_last, trav_tot
+
+
+def _count_planes_at(n: int, idx, n_hit, n_miss):
+    """int32 hit and miss planes [n] holding each voxel-last entry's counts
+    (``idx`` from _pad_targets: unique at those entries; the pads add 0, so
+    the integer sums are exact in any order): the reference's fresh packed
+    pending plane."""
+    planes = torch.zeros((n, 2), dtype=torch.int32, device=idx.device)
+    planes.index_add_(0, idx, torch.stack([n_hit, n_miss], dim=1).to(torch.int32))
+    return planes[:, 0], planes[:, 1]
+
+
+def apply_records_fused(occupancy, records: dict, cfg: IntegrateConfig, traversal=None):
+    """Phase 2, the two-level row-local apply (integrate.py:1116-1192): no
+    sort of the whole key stream.  The expand phase's compaction rows
+    [R, group_cap] are sorted already; level 1 reduces each row to its
+    voxels' partial miss counts (and traversal sums), compacted to
+    ``row_cap`` entries a row by one row sort (_fused_row_partials); level 2
+    merges those with the end records (one count each) in one small sort
+    and sums each voxel's counts exactly (_fused_merge).  The counts
+    scatter into a fresh plane and the occupancy sweep runs over the arena
+    against batch-start values (deposit_cuda.sweep, the reference's dense
+    sweep): the counts are integers, so occupancy is bit-identical to
+    apply_records'; traversal differs by f32 reassociation only.  The row
+    window is clamped so the merge stream fits ``scatter_pad``, as the
+    reference's scratch tail bounds it.  Updates ``occupancy`` (and
+    ``traversal``) in place; returns (touched, dropped) as 0-dim tensors:
+    the voxels written, and the voxel-lasts that the row window dropped."""
+    key = records["key"]
+    n_end = records["end_flat"].shape[0]
+    n_walk = key.shape[0] - n_end
+    cap, cap2 = cfg.group_cap, cfg.row_cap
+    if cap <= 0 or cap2 <= 0 or n_walk % cap:
+        raise ValueError("fused apply requires group-compacted rows and row_cap > 0")
+    if cap >= 1 << 16:
+        raise ValueError("group_cap must fit 16-bit per-row run counts")
+    R = n_walk // cap
+    cap2 = min(cap2, cap, max(1, (cfg.scatter_pad - n_end) // R))
+    sent = cfg.sentinel
+    trav_w = records["trav"][:n_walk] if cfg.with_traversal else None
+    kc, pc, tc, dropped = _fused_row_partials(key[:n_walk].reshape(R, cap) >> 1, None, trav_w,
+                                              cap2, cfg)
+    ek = key[n_walk:]
+    ids_e = ek >> 1
+    hit_e = ek & 1
+    real_e = ids_e != sent
+    packed_e = torch.where(real_e, (hit_e << 16) | (1 - hit_e), 0)
+    trav_e = None
+    if cfg.with_traversal:
+        trav_e = torch.where(real_e, records["trav"][n_walk:], 0.0)
+    idx, n_hit, n_miss, real_last, trav_tot = _fused_merge(kc, pc, tc, ids_e, packed_e, trav_e,
+                                                           cfg)
+    hit_plane, miss_plane = _count_planes_at(sent, idx, n_hit, n_miss)
+    occupancy[:sent] = deposit_cuda.sweep(occupancy[:sent], hit_plane, miss_plane, cfg)
+    if cfg.with_traversal:
+        # Each voxel's sum added once; a pad adds -0.0, which leaves any
+        # value as it is, so the order of the atomic adds does not matter.
+        traversal.index_add_(0, idx, torch.where(real_last, trav_tot, -0.0))
+    return real_last.sum(), dropped
+
+
+def apply_decoded(layers: dict, records: dict, b: dict, cfg: IntegrateConfig) -> dict:
+    """Phase 2 and the sample layers: the fused apply where ``cfg.row_cap``
+    is set, else the split one (apply_records).  Returns {touched,
+    dropped_updates} as 0-dim tensors."""
+    if cfg.row_cap > 0:
+        touched, dropped = apply_records_fused(layers["occupancy"], records, cfg,
+                                               traversal=layers.get("traversal"))
+    else:
+        touched = apply_records(layers["occupancy"], records, cfg,
+                                traversal=layers.get("traversal"))
+        dropped = torch.zeros((), dtype=torch.int64, device=touched.device)
+    if cfg.with_mean or cfg.with_touch_time or cfg.with_incident:
+        apply_sample_layers(layers, records, b, cfg)
+    return {"touched": touched, "dropped_updates": dropped}
+
+
+def delta_path_ok(cfg: IntegrateConfig) -> bool:
+    """True when the delta path keeps the reference's semantics
+    (integrate.py:1525-1544): a window is set, no state-dependent ray flag,
+    no traversal, saturation off, min_value < 0 < max_value.  The port's
+    occupancy arena always holds unobserved as -0.0."""
+    state_flags = (RayFlag.EXCLUDE_FREE | RayFlag.EXCLUDE_OCCUPIED
+                   | RayFlag.EXCLUDE_UNOBSERVED | RayFlag.STOP_ON_FIRST_OCCUPIED)
+    f32 = torch.finfo(torch.float32)
+    sat_off = cfg.saturation_min <= f32.min and cfg.saturation_max >= f32.max
+    return (cfg.scatter_cap > 0 and not (cfg.ray_flags & state_flags)
+            and not cfg.with_traversal and sat_off and cfg.min_value < 0.0 < cfg.max_value)
+
+
+def apply_delta(occupancy, key, cfg: IntegrateConfig) -> dict:
+    """The delta path's apply (integrate.py:1457-1517), in place: sort the
+    keys, read each voxel's counts off positions (sorted_hit_miss_counts),
+    its delta n_hit * hit + n_miss * miss (separate ops: no FMA), then the
+    (voxel << 32 | delta bits) int64 keys of the voxel-lasts sorted to the
+    front and cut to the ``scatter_cap`` window; the window's deltas are
+    added at their unique voxels (``index_add_``; pad entries add -0.0,
+    which leaves any value as it is, _pad_targets), then the whole arena is clamped to
+    [min_value, max_value].  Unobserved is -0.0, so -0.0 + x is x and a
+    +0.0 delta marks a voxel observed.  Returns {touched, dropped_updates}
+    (the voxel-lasts past the window) as 0-dim tensors."""
+    n = key.shape[0]
+    ids, _, last, n_hit, n_miss = sorted_hit_miss_counts(torch.sort(key).values)
+    vox_last = last & (ids < cfg.sentinel)
+    delta = (n_hit.to(torch.float32) * cfg.hit_value
+             + n_miss.to(torch.float32) * cfg.miss_value)
+    i64max = 1 << 62
+    bits = delta.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    k2 = torch.where(vox_last, (ids.to(torch.int64) << 32) | bits, i64max)
+    cap = cfg.scatter_cap if 0 < cfg.scatter_cap < n else n
+    if cap > cfg.scatter_pad:
+        raise ValueError(f"delta path needs scatter_pad >= scatter window ({cap}); "
+                         f"have {cfg.scatter_pad}")
+    s2c = torch.sort(k2).values[:cap]
+    real = s2c != i64max
+    idx = _pad_targets(real, s2c >> 32, cfg.sentinel)
+    val = torch.where(real, (s2c & 0xFFFFFFFF).to(torch.int32).view(torch.float32), -0.0)
+    occupancy.index_add_(0, idx, val)
+    torch.clamp(occupancy, min=cfg.min_value, max=cfg.max_value, out=occupancy)
+    touched = vox_last.sum()
+    return {"touched": touched, "dropped_updates": touched - real.sum()}
 
 
 def _ray_stops(occupied, exclude_start):
@@ -351,6 +617,7 @@ def integrate_occupancy(layers: dict, b: dict, cfg: IntegrateConfig) -> dict:
         "overflow": (walk["overflow"] & ray_valid).sum() + walk["truncated"],
         "compaction_dropped": torch.zeros((), dtype=torch.int64, device=key.device),
         "touched": touched,
+        "dropped_updates": torch.zeros((), dtype=torch.int64, device=key.device),
     }
 
 
@@ -358,19 +625,49 @@ def integrate_decoded(layers: dict, b: dict, cfg: IntegrateConfig,
                       expand=expand_records) -> dict:
     """One decoded batch (ops.wire.decode) into the occupancy arena
     ``layers`` (layer name -> tensor), in place: ``expand`` (expand_records;
-    a caller may pass a wrapper of it) + apply_records + apply_sample_layers,
+    a caller may pass a wrapper of it) + apply_decoded (the fused apply
+    where ``cfg.row_cap`` is set, else the split one) and the sample layers,
     or the monolith under STOP_ON_FIRST_OCCUPIED.  Returns the stats as
     0-dim tensors: missed_updates, applied_updates, overflow,
-    compaction_dropped, touched.  TorchRayMapper and each shard of
-    ohm_tpu_torch.parallel call it."""
+    compaction_dropped, touched, dropped_updates (and row_lasts_max after
+    the expand).  Each shard of ohm_tpu_torch.parallel calls it."""
     if cfg.ray_flags & RayFlag.STOP_ON_FIRST_OCCUPIED:
         return integrate_occupancy(layers, b, cfg)
     records, stats = expand(b, cfg)
-    stats["touched"] = apply_records(layers["occupancy"], records, cfg,
-                                     traversal=layers.get("traversal"))
+    stats.update(apply_decoded(layers, records, b, cfg))
+    return stats
+
+
+def integrate_delta(layers: dict, b: dict, cfg: IntegrateConfig,
+                    expand=expand_records) -> dict:
+    """One decoded batch through the delta path (tpu_map.py:592-606):
+    ``expand``, apply_delta on the occupancy, then the sample layers.
+    Returns the expand's stats with touched and dropped_updates."""
+    records, stats = expand(b, cfg)
+    stats.update(apply_delta(layers["occupancy"], records["key"], cfg))
     if cfg.with_mean or cfg.with_touch_time or cfg.with_incident:
         apply_sample_layers(layers, records, b, cfg)
     return stats
+
+
+def integrate_chain(layers: dict, stacked, cfg: IntegrateConfig, k: int,
+                    expand=expand_records) -> dict:
+    """Run ``k`` rows of one stacked rayflow upload (u8[k, L], every row
+    under ``cfg``) through decode, ``expand`` and apply_decoded, in order,
+    in place (integrate.py:1199-1237): the same stages as k separate
+    batches.  Returns the stats summed over the rows, with the maximum of
+    row_lasts_max and touched."""
+    acc = None
+    for i in range(k):
+        b = decode(stacked[i], cfg)
+        records, st = expand(b, cfg)
+        st.update(apply_decoded(layers, records, b, cfg))
+        if acc is None:
+            acc = st
+        else:
+            acc = {name: (torch.maximum(acc[name], v) if name in ("row_lasts_max", "touched")
+                          else acc[name] + v) for name, v in st.items()}
+    return acc
 
 
 def _u32_to_f32(x: torch.Tensor) -> torch.Tensor:

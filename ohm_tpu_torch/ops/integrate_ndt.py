@@ -46,7 +46,9 @@ from ohm_tpu_torch.core.rayflags import RayFlag
 from ohm_tpu_torch.ops import deposit_cuda, gather_cuda, ndt as ndtops
 from ohm_tpu_torch.ops.config import NdtConfig
 from ohm_tpu_torch.ops.ddawalk import f32
-from ohm_tpu_torch.ops.integrate import expand_walk, group_rows, merge_incident, resolve_voxels
+from ohm_tpu_torch.ops.integrate import (_count_planes_at, _fused_merge, _fused_row_partials,
+                                         _pad_targets, _row_lasts_max, expand_walk, group_rows,
+                                         merge_incident, resolve_voxels)
 from ohm_tpu_torch.ops.segments import (_first_last, cumsum, segment_reduce, segment_sums,
                                         segment_u32_max)
 from ohm_tpu_torch.ops.subvoxel import flush_denormals
@@ -152,7 +154,10 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
     touch_time and incident), in place.
 
     Returns the stats as 0-dim tensors: missed_updates, overflow, touched,
-    ndt_overflow, ndt_flagged, compaction_dropped."""
+    ndt_overflow, ndt_flagged, compaction_dropped, dropped_updates (the
+    fused deposit's), row_lasts_max (-1 without compaction); and ``route``,
+    the deposit taken: "fused" (with traversal and ``base.row_cap`` set on
+    compacted rows) or "k3"."""
     base = cfg.base
     flags = base.ray_flags
     sentinel = base.sentinel
@@ -187,8 +192,10 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
     pos = torch.arange(B * S, dtype=torch.int32, device=dev)
     trav_c = walk_trav.reshape(-1) if with_trav else None
     compaction_dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    row_lasts_max = None
     G = base.group_size
-    if base.group_cap and B % G == 0 and base.group_cap < G * S:
+    compacted = bool(base.group_cap) and B % G == 0 and base.group_cap < G * S
+    if compacted:
         rows = group_rows(flat_ids, B, S, G)
         n_valid = (rows < sentinel).sum()
         rows, order = torch.sort(rows, dim=1, stable=True)
@@ -198,6 +205,7 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
         if with_trav:
             trav_c = torch.gather(group_rows(trav_c, B, S, G), 1, order).reshape(-1)
         compaction_dropped = n_valid - (rows < sentinel).sum()
+        row_lasts_max = _row_lasts_max(rows, sentinel)
         ids_c = rows.reshape(-1)
     else:
         ids_c, pos_c = flat_ids, pos
@@ -225,29 +233,80 @@ def integrate_ndt(arena: dict, b: dict, cfg: NdtConfig) -> dict:
 
     # Standard misses (walk records the NDT math did not take) and the
     # end/sample records deposit with the miss delta; the sweep runs last
-    # because the hit phase reads batch-start occupancy.  The walk stream
-    # goes with its unmasked bounds: within a voxel's run of ``sids`` the
-    # records the NDT math took come first (_miss_phase), so the masked
-    # records form a prefix, as K3 needs.
-    std_miss = (sids != sentinel) & ~ndt_applied
-    bounds = sids << 1
-    walk_keys = torch.where(std_miss, bounds, torch.full_like(sids, sentinel << 1))
-    end_keys = ((torch.where(end_any, end_flat, torch.full_like(end_flat, sentinel)) << 1)
-                | end_is_hit.to(torch.int32))
-    _, touched = deposit_cuda.deposit_and_sweep_ndt(
-        arena["occupancy"], walk_keys, end_keys, pending_delta, base, bounds_key=bounds)
-    if with_trav:
-        _standard_traversal(arena["traversal"], walk_keys, order, trav_c, end_keys,
-                            torch.where(end_any, b["length"] - aux["end_enter"],
-                                        torch.zeros_like(b["length"])), sentinel)
+    # because the hit phase reads batch-start occupancy.
+    end_trav = (torch.where(end_any, b["length"] - aux["end_enter"], torch.zeros_like(b["length"]))
+                if with_trav else None)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    if with_trav and base.row_cap > 0 and compacted:
+        route = "fused"
+        touched, dropped = _fused_deposit(arena, ids_c, order, ndt_applied, trav_c, end_flat,
+                                          end_is_hit, end_is_miss, end_trav, ids_k, k_write,
+                                          k_red[:, 0], base)
+    else:
+        # K3.  The walk stream goes with its unmasked bounds: within a
+        # voxel's run of ``sids`` the records the NDT math took come first
+        # (_miss_phase), so the masked records form a prefix, as K3 needs.
+        route = "k3"
+        std_miss = (sids != sentinel) & ~ndt_applied
+        bounds = sids << 1
+        walk_keys = torch.where(std_miss, bounds, torch.full_like(sids, sentinel << 1))
+        end_keys = ((torch.where(end_any, end_flat, torch.full_like(end_flat, sentinel)) << 1)
+                    | end_is_hit.to(torch.int32))
+        _, touched = deposit_cuda.deposit_and_sweep_ndt(
+            arena["occupancy"], walk_keys, end_keys, pending_delta, base, bounds_key=bounds)
+        if with_trav:
+            _standard_traversal(arena["traversal"], walk_keys, order, trav_c, end_keys,
+                                end_trav, sentinel)
 
     stats.update({
         "missed_updates": walk_missed_n + (end_any & end_missed).sum(),
         "overflow": overflow_n,
         "touched": touched,
         "compaction_dropped": compaction_dropped,
+        "dropped_updates": dropped,
+        "row_lasts_max": (torch.full((), -1, dtype=torch.int64, device=dev)
+                          if row_lasts_max is None else row_lasts_max),
+        "route": route,
     })
     return stats
+
+
+def _fused_deposit(arena: dict, ids_c, order, ndt_applied, trav_c, end_flat, end_is_hit,
+                   end_is_miss, end_trav, ids_k, k_write, k_delta, base) -> tuple:
+    """The standard counts through the fused row-local deposit
+    (integrate_ndt.py:328-359), in place: per-row partial counts of the
+    standard misses (weights mask out the records the NDT math took) and
+    their traversal over the compaction rows, merged with the end records;
+    then the traversal sums add at each voxel, and the NDT sweep runs over
+    the arena with the count planes and the miss delta plane
+    (deposit_cuda.ndt_sweep, the reference's dense apply).  Returns
+    (touched, dropped) as 0-dim tensors."""
+    sentinel = base.sentinel
+    applied_c = torch.empty_like(ndt_applied)
+    applied_c[order] = ndt_applied  # sorted-stream order back to compacted order
+    std_miss = (ids_c != sentinel) & ~applied_c
+    cap_r = base.group_cap
+    M, B = ids_c.shape[0], end_flat.shape[0]
+    # The merge stream must fit scatter_pad: an escalated row_cap narrows.
+    cap2 = min(base.row_cap, cap_r, max(1, (base.scatter_pad - B) // max(1, M // cap_r)))
+    kc, pc, tc, dropped = _fused_row_partials(
+        ids_c.reshape(-1, cap_r), std_miss.to(torch.float32),
+        torch.where(std_miss, trav_c, torch.zeros_like(trav_c)), cap2, base)
+    end_any = end_is_hit | end_is_miss
+    ids_e = torch.where(end_any, end_flat, torch.full_like(end_flat, sentinel))
+    packed_e = torch.where(end_any, (end_is_hit.to(torch.int32) << 16)
+                           | end_is_miss.to(torch.int32), 0)
+    idx, n_hit, n_miss, real_last, trav_tot = _fused_merge(
+        kc, pc, tc, ids_e, packed_e, torch.where(end_any, end_trav, torch.zeros_like(end_trav)),
+        base)
+    arena["traversal"].index_add_(0, idx, torch.where(real_last, trav_tot, -0.0))
+    hit, miss = _count_planes_at(sentinel, idx, n_hit, n_miss)
+    delta = torch.zeros(sentinel, dtype=torch.float32, device=ids_c.device)
+    delta.index_add_(0, _pad_targets(k_write, ids_k, sentinel),
+                     torch.where(k_write, k_delta, -0.0))
+    occ = arena["occupancy"]
+    occ[:sentinel] = deposit_cuda.ndt_sweep(occ[:sentinel], hit, miss, delta, base)
+    return real_last.sum(), dropped
 
 
 def _standard_traversal(traversal, walk_keys, order, trav_c, end_keys, end_trav,

@@ -1,8 +1,8 @@
 """Deterministic segmented reductions over a sorted stream.
 
 Counterparts of ``_segment_reduce`` (``ohm_tpu/ops/integrate.py:497-543``)
-and ``segment_sums`` / ``cumsum`` / ``segment_compose_affine_clamp``
-(``ohm_tpu/ops/blocked.py:60,77,218``).  Each is
+and ``cummax`` / ``segment_sums`` / ``cumsum`` / ``segment_compose_affine_clamp``
+(``ohm_tpu/ops/blocked.py:33,60,77,218``).  Each is
 written with elementwise PyTorch ops only, in the reference's order of
 summation: the same inputs give the same bits on every run and on either
 device, and match the JAX functions up to XLA's own contractions.  No float
@@ -76,6 +76,18 @@ def segment_u32_max(ids_sorted: torch.Tensor, vals: torch.Tensor) -> torch.Tenso
     int32's."""
     flip = -(1 << 31)
     return segment_reduce(ids_sorted, vals ^ flip, "max")[1] ^ flip
+
+
+def cummax(x: torch.Tensor, lowest: int) -> torch.Tensor:
+    """Inclusive cumulative maximum of an integer stream [N], floored at
+    ``lowest`` (blocked.cummax: its rows are padded with ``lowest`` and the
+    first row's carry is ``lowest``).  A maximum of integers is exact in any
+    order, so torch.cummax gives blocked.cummax's values."""
+    if x.dtype.is_floating_point:
+        raise TypeError("cummax takes integers")
+    if x.shape[0] == 0:
+        return x
+    return torch.clamp(torch.cummax(x, dim=0).values, min=lowest)
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,17 @@ import numpy as np
 import torch
 
 
+def fused_traversal_atol(resolution: float) -> float:
+    """The largest difference the fused and the split apply may give one
+    voxel's traversal: both sum the same records by ops.segments'
+    blocked sums, in other groupings.  Each of a sum's 11 rounding steps
+    (10 in-row log-shift levels, the row carry) rounds an in-row prefix of
+    at most 1024 records, each at most a voxel diagonal (sqrt(3) x
+    ``resolution``) long, to f32 (2^-23 relative): 11 x 1024 x sqrt(3) x
+    resolution x 2^-23 each, twice for the two groupings (4.6e-4 at 0.1 m)."""
+    return 2 * 11 * 1024 * 3 ** 0.5 * resolution * 2.0 ** -23
+
+
 def ndt_flag_arena(n_arena: int, n_voxels: int, rng, n_nan: int, n_big: int,
                    seen: float = 0.6):
     """An NDT arena's occupancy and u32 mean counts for the flag gather, as

@@ -43,6 +43,7 @@ DEVICE_KEYS = {"backend", "device"}
 #: 272-280, 294-295, 304-305, 322-323, 382-392).
 REFERENCE_KEYS = {
     "hardware_differential": {"metric", "compared_voxels", "mismatches", "worst_abs_diff", "ok"},
+    "hardware_fused_differential": {"metric", "bit_identical"},
     "occupancy_integrate_rays_per_sec": {"metric", "value", "unit", "vs_baseline"},
     "bench_attribution": {"metric", "wire_bytes_per_ray", "host_prep_ms_per_batch",
                           "transfer_ms_per_batch", "transfer_mb_per_s",
@@ -114,8 +115,9 @@ class _FirstHalfDone(Exception):
 
 def test_hardware_check_matches_the_reference(monkeypatch, capsys):
     """The port's line against the reference's first half (its box scan
-    against the oracle); the fused half, which the port has no counterpart
-    of, is stopped where it draws its first batch."""
+    against the oracle); the fused half (the port's
+    hardware_fused_differential, below) is stopped where it draws its first
+    batch."""
     scans = []
 
     def first_scan_only(n, rng, *args, **kwargs):
@@ -136,6 +138,30 @@ def test_hardware_check_matches_the_reference(monkeypatch, capsys):
         assert port[key] == ref[key], key
     assert set(port) == REFERENCE_KEYS["hardware_differential"] | DEVICE_KEYS
     assert _json_lines(capsys.readouterr().out) == [port]
+
+
+def test_hardware_fused_differential_draws_the_reference_batches(monkeypatch, capsys):
+    """bench.py's fused half draws six 512-ray batches after the first
+    half's 1024-ray scan (bench.py:39,88); the port's draws the same ones
+    from the same generator and prints its line (bit_identical on the CPU)
+    with the reference's keys."""
+    rng = np.random.default_rng(bench.SEED)
+    ref_bench.box_scene_rays(1024, rng)
+    want = [ref_bench.box_scene_rays(512, rng) for _ in range(6)]
+    drawn, inner = [], bench.box_scene_rays
+
+    def recorded(n, rng, *args, **kwargs):
+        drawn.append(inner(n, rng, *args, **kwargs))
+        return drawn[-1]
+
+    monkeypatch.setattr(bench, "box_scene_rays", recorded)
+    rng = np.random.default_rng(bench.SEED)
+    bench.box_scene_rays(1024, rng)
+    row = bench.hardware_fused_differential(rng, "cpu")
+    assert len(drawn) == 7 and all(np.array_equal(a, b) for a, b in zip(want, drawn[1:]))
+    assert row["bit_identical"] and row["metric"] == "hardware_fused_differential"
+    assert set(row) == REFERENCE_KEYS["hardware_fused_differential"] | DEVICE_KEYS
+    assert _json_lines(capsys.readouterr().out) == [row]
 
 
 def test_differential_on_hardware_matches_the_reference():
@@ -169,10 +195,11 @@ def test_bench_main_at_a_small_size(monkeypatch, capsys):
     assert bench.main(["--device", "cpu"]) == 0
     assert seen == [("cpu", 16384, 20, True, True)]
     rows = _json_lines(capsys.readouterr().out)
-    _check_lines(rows, ["hardware_differential", "occupancy_integrate_rays_per_sec",
-                        "bench_attribution"])
-    assert rows[0]["ok"] and rows[1]["value"] > 0 and rows[1]["unit"] == "rays/s"
-    assert rows[2]["wire_bytes_per_ray"] > 0 and rows[2]["device_only_rays_per_sec"] > 0
+    _check_lines(rows, ["hardware_differential", "hardware_fused_differential",
+                        "occupancy_integrate_rays_per_sec", "bench_attribution"])
+    assert rows[0]["ok"] and rows[1]["bit_identical"]
+    assert rows[2]["value"] > 0 and rows[2]["unit"] == "rays/s"
+    assert rows[3]["wire_bytes_per_ray"] > 0 and rows[3]["device_only_rays_per_sec"] > 0
 
 
 def test_bench_modes_main_at_a_small_size(monkeypatch, capsys, tmp_path):

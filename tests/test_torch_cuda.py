@@ -61,7 +61,8 @@ from ohm_tpu_torch.scripts import probe_deposit as pd
 from ohm_tpu_torch.ops.tsdf_cuda import tsdf_visits, tsdf_visits_reference
 from ohm_tpu_torch.testing import (BENCH_WORKER_KINDS, DEPOSIT_EDGE_STREAMS, NDT_EDGE_STREAMS,
                                    PROBE_LIBRARY_CALLS, TSDF_VISIT_STREAMS, bench_worker_maps,
-                                   deposit_edge_stream, dispatched_ops, edge_rays, map_bytes,
+                                   deposit_edge_stream, dispatched_ops, edge_rays,
+                                   fused_traversal_atol, map_bytes,
                                    ndt_edge_streams, ndt_flag_arena, tsdf_visit_stream)
 
 pytestmark = pytest.mark.cuda
@@ -887,3 +888,85 @@ def test_bench_worker_loop_gives_the_synchronous_map(cuda, kind):
     a, b = map_bytes(worker), map_bytes(sync)
     assert len(worker.chunks) > 0 and a.keys() == b.keys()
     assert all(a[k] == b[k] for k in a)
+
+
+def _route_run(device, fused, batches, worker=False, flags=MapFlag.TRAVERSAL, **kw):
+    """``batches`` through a TorchRayMapper built under OHM_FUSED=``fused``
+    (synchronous calls, or the sizing half through the worker thread and
+    the rest as one of its groups); its routes and host layers."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OHM_FUSED", fused)
+        m = OccupancyMap(resolution=0.1, flags=flags)
+        mapper = TorchRayMapper(m, capacity=512, validate=True, device=device, **kw)
+    mapper.prime_caps(batches)
+    routes = []
+    half = len(batches) // 2
+    if worker:
+        for b in batches[:half]:
+            mapper.integrate_rays_async(b)
+        mapper.flush()
+        mapper._integrate_group([(b, None, None, 0) for b in batches[half:]])
+        routes.append(mapper.last_route)
+    else:
+        for b in batches:
+            mapper.integrate_rays(b)
+            routes.append(mapper.last_route)
+    mapper.sync_voxels()
+    out = {}
+    for layer in ("occupancy", "traversal"):
+        i = m.layer_index(layer)
+        if i >= 0:
+            out.update({(k, layer): c.layers[i][layer].copy() for k, c in m.chunks.items()})
+    return routes, out, mapper
+
+
+def _same_occupancy(a, b):
+    occ = [k for k in a if k[1] == "occupancy"]
+    return sorted(occ) == sorted(k for k in b if k[1] == "occupancy") and all(
+        np.array_equal(a[k].view(np.uint32), b[k].view(np.uint32)) for k in occ)
+
+
+def test_fused_and_delta_routes_on_card_match_split(cuda):
+    """The fused apply (OHM_FUSED=2) and the delta path on the card: the
+    split apply's occupancy bit for bit (traversal within
+    testing.fused_traversal_atol, the blocked sums' rounding bound), the
+    card's fused run equal to the CPU's (traversal within 1e-5), and a
+    second card run the same bits."""
+    rng = np.random.default_rng(11)
+    batches = [_box_rays(2048, rng) for _ in range(6)]
+    split = _route_run(cuda, "0", batches)
+    fused = _route_run(cuda, "2", batches)
+    again = _route_run(cuda, "2", batches)
+    cpu = _route_run("cpu", "2", batches)
+    delta = _route_run(cuda, "0", batches, flags=MapFlag.NONE, delta_path=True)
+    assert fused[0][3:] == ["fused"] * 3 and delta[0][4:] == ["delta"] * 2
+    assert _same_occupancy(split[1], fused[1]) and _same_occupancy(split[1], delta[1])
+    assert _same_occupancy(fused[1], cpu[1])
+    for k, v in fused[1].items():
+        assert np.array_equal(v.view(np.uint32), again[1][k].view(np.uint32)), k
+        if k[1] == "traversal":
+            assert np.abs(v - split[1][k]).max() <= fused_traversal_atol(0.1)
+            np.testing.assert_allclose(v, cpu[1][k], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fused", ["0", "2"], ids=["split", "fused"])
+def test_coalesced_worker_on_card_matches_sequential(cuda, fused):
+    """The worker on the card (its thread, pinned coalesced uploads, then a
+    group of four chained) leaves the synchronous calls' map bit for bit."""
+    rng = np.random.default_rng(17)
+    batches = [_box_rays(2048, rng) for _ in range(8)]
+    seq = _route_run(cuda, fused, batches)
+    co = _route_run(cuda, fused, batches, worker=True)
+    assert co[0] == ["chain_fused" if fused == "2" else "chain_split"]
+    assert co[2]._staged, "no pinned upload"
+    assert co[1].keys() == seq[1].keys()
+    for k, v in co[1].items():
+        assert np.array_equal(v.view(np.uint32), seq[1][k].view(np.uint32)), k
+
+
+def test_hardware_fused_differential_on_card(cuda):
+    from ohm_tpu_torch import bench
+
+    rng = np.random.default_rng(bench.SEED)
+    bench.box_scene_rays(1024, rng)
+    assert bench.hardware_fused_differential(rng, "cuda")["bit_identical"]

@@ -224,6 +224,52 @@ def test_bench_modules_import_and_run_with_jax_blocked():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+_ROUTES_SCRIPT = """
+import os, sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+from ohm_tpu_torch import TorchNdtMap, TorchRayMapper
+from ohm_tpu_torch.core.map import MapFlag, OccupancyMap
+from ohm_tpu_torch.ops import integrate, segments
+from ohm_tpu_torch.scripts import phase_timing
+rng = np.random.default_rng(0)
+batches = []
+for _ in range(6):
+    rays = np.zeros((512, 3))
+    rays[1::2] = rng.uniform(-2, 2, (256, 3))
+    batches.append(rays)
+os.environ["OHM_FUSED"] = "2"
+fused = TorchRayMapper(OccupancyMap(resolution=0.1, region_voxel_dims=8, flags=MapFlag.TRAVERSAL),
+                       capacity=256, validate=True, device="cpu")
+ndt = TorchNdtMap(OccupancyMap(resolution=0.1, region_voxel_dims=8, flags=MapFlag.TRAVERSAL),
+                  capacity=256, validate=True, device="cpu")
+del os.environ["OHM_FUSED"]
+delta = TorchRayMapper(OccupancyMap(resolution=0.1, region_voxel_dims=8), capacity=256,
+                       validate=True, device="cpu", delta_path=True)
+for mapper in (fused, ndt, delta):
+    for b in batches[:4]:
+        mapper.integrate_rays(b)
+    mapper._integrate_group([(b, None, None, 0) for b in batches[4:]])
+    mapper.integrate_rays_async(batches[0])
+    mapper.sync_voxels()
+assert (fused.last_route, ndt.last_route, delta.last_route) == ("fused", "fused", "delta")
+print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu.", "scripts."))
+             or n in ("ohm_tpu", "scripts", "bench", "triton")))
+"""
+
+
+def test_apply_routes_import_and_run_with_jax_blocked():
+    """The fused, NDT fused and delta routes, the worker's group and
+    ohm_tpu_torch.scripts.phase_timing import and run on the CPU with JAX
+    blocked, and load no module of ohm_tpu, nor the root bench.py or
+    scripts/."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _ROUTES_SCRIPT], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_parallel_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from ohm_tpu_torch.parallel import ShardMesh, dryrun_multichip
 

@@ -142,7 +142,9 @@ def _run_port(layers, use_async=False, record=True):
     batches, flags, stamps = _sequence()
     rec = _Recorder()
     m = PortMap(resolution=0.1, region_voxel_dims=8, flags=_flags(layers, PortMapFlag))
-    port = TorchRayMapper(m, capacity=32, validate=True, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OHM_FUSED", "0")  # the reference's split-phase apply, as _run_reference's
+        port = TorchRayMapper(m, capacity=32, validate=True, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         if record:
             inner_expand, inner_dispatch = port_torch_map.expand_records, port._dispatch

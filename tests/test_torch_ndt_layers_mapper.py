@@ -190,9 +190,11 @@ def _run_reference(spec):
 def _run_port(spec):
     rec = _Recorder()
     m = PortMap(resolution=0.25, region_voxel_dims=8, flags=_flags(spec["layers"], PortMapFlag))
-    port = TorchNdtMap(m, PortNdtParams(ndt_tm=spec["tm"]), capacity=32,
-                       validate=spec["miss_k"] != 4, miss_k=spec["miss_k"],
-                       rayflow=spec["rayflow"], device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OHM_FUSED", "0")  # the reference's split-phase apply, as _run_reference's
+        port = TorchNdtMap(m, PortNdtParams(ndt_tm=spec["tm"]), capacity=32,
+                           validate=spec["miss_k"] != 4, miss_k=spec["miss_k"],
+                           rayflow=spec["rayflow"], device="cpu")
     inner = port_ndt_map.integrate_ndt
     inner_dispatch = port._dispatch
     inner_reduce = port_ndt_ops.segment_reduce
