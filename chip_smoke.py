@@ -363,6 +363,19 @@ Each phase's seconds follow it on a "phase_seconds" line.
                "cuda" and the card's name), the differential ok, the fused
                differential bit-identical, and
                bench_modes' --out file hold its rows
+  api          the reference's call forms, with OHM_RAYFLOW, OHM_RAYFLOW_G,
+               OHM_SNAKE and OHM_STREAM_BUDGET unset: TorchRayMapper(m, 512),
+               TorchNdtMap(m, None, 1024) and TorchTsdfMap(m, None, 1024),
+               positional, take the rayflow wire (one segment a ray) on
+               three box batches, K1 and K2 / the flag gather and K3 / the
+               fused TSDF kernel counted above 0 and their device rows in
+               torch.profiler; OHM_RAYFLOW_G=8 OHM_SNAKE=0 groups 8 rays
+               and gives the default mapper's occupancy bits, K1 and K2
+               launched; under OHM_RAYFLOW=0 the default constructor takes
+               the segmented wire (segments counted, K1 not launched); and
+               TorchTsdfMap with per_visit=False under a pinned scatter_cap
+               drops and counts the same voxel updates on the card as on
+               the CPU, with the same bits, K1 launched ahead of the window
 
 Then one JSON line of the kernels (each with its bound: the bytes it must
 move over 3.35 TB/s or its operations over 67 TFLOP/s (bf16 matrix work
@@ -4695,6 +4708,151 @@ def run_port_bench(module: str, *args) -> dict:
     return out
 
 
+#: The api phase: three bench-shape box batches per mapper; the pinned
+#: TSDF window and its batches (run on the card and on the CPU).
+API_BATCHES = 3
+API_KNOBS = ("OHM_RAYFLOW", "OHM_RAYFLOW_G", "OHM_SNAKE", "OHM_STREAM_BUDGET")
+API_TSDF_RAYS = 2048
+API_TSDF_CAP = 4096
+
+
+def api_kernel_run(mapper, batches, counters: dict, kernel_names: tuple) -> dict:
+    """``batches`` through ``mapper`` with the counts set to 0 just before
+    and read just after; the stats; and torch.profiler's device rows of one
+    more batch (device_profile: the named kernels' time alone, the device
+    operations a batch)."""
+    zero_counts(counters)
+    for b in batches:
+        mapper.integrate_rays(b)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    stats = mapper.stats
+    for name in ("missed_updates", "overflow", "compaction_dropped", "dropped_updates"):
+        if stats[name]:
+            raise AssertionError(f"api: {type(mapper).__name__} reported {name}={stats[name]}")
+    prof = device_profile(lambda: mapper.integrate_rays(batches[0]), kernel_names, reps=2)
+    return {"launches": launches, "rays": stats["rays"], "segments": stats["segments"],
+            "rayflow": mapper.rayflow, "stream_budget": mapper.stream_budget,
+            "profiled_kernel_ms": prof["kernel_ms"], "device_ops_per_batch": prof["device_ops"]}
+
+
+def api_tsdf_window(device, batches) -> tuple:
+    """TorchTsdfMap, per_visit=False, under the pinned window: (its
+    tsdf_layers, stats, scatter_cap)."""
+    m = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
+    mapper = TorchTsdfMap(m, TsdfOptions(per_visit=False), TSDF_CAPACITY, None, False,
+                          API_TSDF_CAP, device)
+    for b in batches:
+        mapper.integrate_rays(b)
+    mapper.sync_voxels()
+    return tsdf_layers(m), mapper.stats, mapper.scatter_cap
+
+
+def phase_api() -> dict:
+    """The mappers as the reference's callers build them: positional, with
+    no rayflow or stream_budget, and the knobs the port reads since it
+    takes the reference's None defaults."""
+    saved = {k: os.environ.pop(k) for k in API_KNOBS if k in os.environ}
+    try:
+        return _phase_api()
+    finally:
+        os.environ.update(saved)
+
+
+def _phase_api() -> dict:
+    rng = np.random.default_rng(SEED)
+    batches = [box_scene_rays(RAYS_PER_BATCH, rng) for _ in range(API_BATCHES)]
+    occ_counters = {"expand_keys": expand_cuda.expand_keys,
+                    "deposit_and_sweep": deposit_cuda.deposit_and_sweep}
+    runs = {}
+    occ = TorchRayMapper(OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE), CAPACITY)
+    runs["occupancy"] = api_kernel_run(occ, batches, occ_counters,
+                                       ("expand_keys_kernel",) + K2_KERNELS)
+    ndt = TorchNdtMap(OccupancyMap(resolution=NDT_RESOLUTION, flags=MapFlag.NONE), None,
+                      NDT_CAPACITY)
+    runs["ndt"] = api_kernel_run(
+        ndt, batches, {"expand_keys": expand_cuda.expand_keys,
+                       "gather_ndt_flags": gather_cuda.gather_ndt_flags,
+                       "deposit_and_sweep_ndt": deposit_cuda.deposit_and_sweep_ndt},
+        ("expand_keys_kernel", "NdtFlagSource") + K3_KERNELS)
+    tsdf = TorchTsdfMap(OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE), None,
+                        TSDF_CAPACITY)
+    runs["tsdf"] = api_kernel_run(
+        tsdf, batches, {"expand_keys": expand_cuda.expand_keys,
+                        "tsdf_visits": tsdf_cuda.tsdf_visits},
+        ("expand_keys_kernel",) + TSDF_VISITS_KERNELS)
+    ok = all(r["rayflow"] and r["segments"] == r["rays"] == API_BATCHES * RAYS_PER_BATCH
+             and r["stream_budget"] == 1 << 21 and min(r["launches"].values()) > 0
+             and r["profiled_kernel_ms"] > 0 for r in runs.values())
+
+    # The compaction grouping's knobs (G = 8 rays, no snake order) against
+    # the defaults, each on a new map over the same batches.
+    maps, sizes = [], []
+    for knobs in ({}, {"OHM_RAYFLOW_G": "8", "OHM_SNAKE": "0"}):
+        m = OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE)
+        mapper = TorchRayMapper(m, CAPACITY)
+        seen, inner = [], mapper._dispatch
+
+        def dispatch(upload, cfg, n_rays, n_segments=None, inner=inner, seen=seen):
+            seen.append(cfg.group_size)
+            return inner(upload, cfg, n_rays, n_segments)
+
+        mapper._dispatch = dispatch
+        zero_counts(occ_counters)
+        with contextlib.ExitStack() as stack:
+            for name, value in knobs.items():
+                stack.enter_context(environ(name, value))
+            for b in batches:
+                mapper.integrate_rays(b)
+        mapper.sync_voxels()
+        maps.append(m)
+        sizes.append(sorted(set(seen)))
+    grouping = {"group_sizes": sizes[1], "default_group_sizes": sizes[0],
+                "launches": read_counts(occ_counters),
+                "compaction_dropped": mapper.stats["compaction_dropped"],
+                "occupancy_bit_identical": occupancy_maps_identical(*maps)}
+    ok = ok and grouping["group_sizes"] == [8] and grouping["default_group_sizes"] == [64] and (
+        grouping["occupancy_bit_identical"]) and min(
+        grouping["launches"].values()) > 0 and grouping["compaction_dropped"] == 0
+
+    # OHM_RAYFLOW=0: the default constructor counts segments, as the
+    # reference's does; the segmented wire has no candidate table for K1.
+    with environ("OHM_RAYFLOW", "0"):
+        seg = TorchRayMapper(OccupancyMap(resolution=RESOLUTION, flags=MapFlag.NONE), CAPACITY)
+    zero_counts(occ_counters)
+    seg.integrate_rays(batches[0])
+    torch.cuda.synchronize()
+    segmented = {"rayflow": seg.rayflow, "rays": seg.stats["rays"],
+                 "segments": seg.stats["segments"], "launches": read_counts(occ_counters)}
+    ok = ok and not seg.rayflow and segmented["segments"] > segmented["rays"] and segmented[
+        "launches"]["expand_keys"] == 0 and segmented["launches"]["deposit_and_sweep"] > 0
+
+    # The per-batch TSDF route's scatter_cap window, card against CPU.
+    tsdf_batches = [box_scene_rays(API_TSDF_RAYS, rng) for _ in range(API_BATCHES)]
+    window_counters = {"expand_keys": expand_cuda.expand_keys,
+                       "tsdf_visits": tsdf_cuda.tsdf_visits}
+    zero_counts(window_counters)
+    card_layers, card_stats, card_cap = api_tsdf_window("cuda", tsdf_batches)
+    window_launches = read_counts(window_counters)
+    cpu_layers, cpu_stats, cpu_cap = api_tsdf_window("cpu", tsdf_batches)
+    same_bits = card_layers.keys() == cpu_layers.keys() and len(card_layers) > 0 and all(
+        np.array_equal(a.view(np.uint32), b.view(np.uint32))
+        for k in card_layers for a, b in zip(card_layers[k], cpu_layers[k]))
+    window = {"scatter_cap": card_cap, "rays_per_batch": API_TSDF_RAYS,
+              "dropped_updates": card_stats["dropped_updates"],
+              "cpu_dropped_updates": cpu_stats["dropped_updates"], "bit_identical": same_bits,
+              "launches": window_launches}
+    ok = ok and card_cap == cpu_cap == API_TSDF_CAP and window["dropped_updates"] > 0 and (
+        window["dropped_updates"] == window["cpu_dropped_updates"]) and same_bits and (
+        window_launches["expand_keys"] > 0 and window_launches["tsdf_visits"] == 0)
+
+    row = emit({"phase": "api", "reference_forms": runs, "grouping_g8_no_snake": grouping,
+                "rayflow_0": segmented, "tsdf_window": window, "ok": bool(ok)})
+    if not ok:
+        raise AssertionError(f"api phase failed: {row}")
+    return row
+
+
 def phase_port_bench() -> dict:
     """The two commands a benchmark's cells run, each in its own process on
     the card: python -m ohm_tpu_torch.bench, and
@@ -4794,6 +4952,7 @@ def main(argv=None) -> int:
     p = timed("p", phase_p)
     apps = timed("apps", phase_apps)
     timed("port_bench", phase_port_bench)
+    timed("api", phase_api)
     ohmpop_launches = {mode: apps["modes"][mode]["launches"] for mode in ("ndt", "ndt-tm", "tsdf")}
     ohmpop_launches["occupancy"] = apps["ohmpop"]["launches"]
     foreign = sorted(n for n in sys.modules if n in ("jax", "ohm_tpu")

@@ -42,9 +42,17 @@ Layer map (each module names its ``ohm_tpu`` counterpart):
 
 __version__ = "0.1.0"
 
+from ohm_tpu_torch.core.probability import probability_to_value, value_to_probability
+from ohm_tpu_torch.core.map import OccupancyMap, MapFlag
+from ohm_tpu_torch.core.layout import MapLayout, MapLayer, VoxelLayout, DataType, default_layout
+from ohm_tpu_torch.core.rayflags import RayFlag, RayFilterFlag
 from ohm_tpu_torch.device import require_cuda, resolve_device
+from ohm_tpu_torch.io import load, save
 from ohm_tpu_torch.mapping.ndt_map import TorchNdtMap
 from ohm_tpu_torch.mapping.torch_map import TorchRayMapper
 from ohm_tpu_torch.mapping.tsdf_map import TorchTsdfMap
 
-__all__ = ["TorchNdtMap", "TorchRayMapper", "TorchTsdfMap", "require_cuda", "resolve_device"]
+__all__ = ["DataType", "MapFlag", "MapLayer", "MapLayout", "OccupancyMap", "RayFilterFlag",
+           "RayFlag", "TorchNdtMap", "TorchRayMapper", "TorchTsdfMap", "VoxelLayout",
+           "default_layout", "load", "probability_to_value", "require_cuda", "resolve_device",
+           "save", "value_to_probability"]

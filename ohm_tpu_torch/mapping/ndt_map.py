@@ -50,9 +50,14 @@ class TorchNdtMap(TorchRayMapper):
     _DROPPED_WHAT = "fused row_cap exceeded: the deposit dropped voxel-lasts"
 
     def __init__(self, map_obj, params: NdtParams | None = None, capacity: int = 1024,
-                 validate: bool = False, miss_k: int | str = _AUTO_MISS_K,
-                 stream_budget: int = 1 << 21, device="cuda",
-                 segment_length: float | None = None, rayflow: bool = True):
+                 segment_length: float | None = None, validate: bool = False,
+                 miss_k: int | str = _AUTO_MISS_K, device="cuda", *,
+                 stream_budget: int | None = None, rayflow: bool | None = None):
+        """The reference's parameters in its order and with its defaults
+        (ndt_map.py:30-32), then ``device``; ``stream_budget`` and
+        ``rayflow`` (keyword only) default to None, which reads
+        OHM_STREAM_BUDGET and OHM_RAYFLOW as the reference's base class
+        does."""
         self.params = params or NdtParams()
         if self.params.adaptation_rate <= 0:
             miss_p = float(value_to_probability(map_obj.miss_value))
@@ -71,9 +76,9 @@ class TorchNdtMap(TorchRayMapper):
             self.miss_k = int(miss_k)
             self._auto_miss_k = self.miss_k == _AUTO_MISS_K
             self._miss_k_sized = False
-        super().__init__(map_obj, capacity=capacity, validate=validate,
-                         stream_budget=stream_budget, device=device,
-                         segment_length=segment_length, rayflow=rayflow)
+        super().__init__(map_obj, capacity=capacity, segment_length=segment_length,
+                         validate=validate, rayflow=rayflow, stream_budget=stream_budget,
+                         device=device)
 
     def _arena_layers(self) -> tuple[list[str], str]:
         names = ["occupancy", "mean_coord", "mean_count", "cov"]

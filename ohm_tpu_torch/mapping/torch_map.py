@@ -102,19 +102,31 @@ class TorchRayMapper:
     _DROPPED_WHAT = ("scatter_cap exceeded (the delta window or the fused row window): "
                      "raise TorchRayMapper(scatter_cap=...)")
 
-    def __init__(self, map_obj, capacity: int = 1024, validate: bool = False,
-                 stream_budget: int = 1 << 21, device="cuda",
-                 segment_length: float | None = None, rayflow: bool = True,
-                 scatter_pad: int = 1 << 22, scatter_cap: int | str = "auto",
-                 delta_path: bool = False):
+    def __init__(self, map_obj, capacity: int = 1024, segment_length: float | None = None,
+                 validate: bool = False, scatter_pad: int = 1 << 22,
+                 scatter_cap: int | str = "auto", rayflow: bool | None = None,
+                 delta_path: bool = False, stream_budget: int | None = None,
+                 device="cuda"):
+        """The reference's parameters in its order and with its defaults
+        (tpu_map.py:58-69), then ``device``.  ``rayflow=None`` reads
+        OHM_RAYFLOW ("0" sends every batch to the segmented wire, else the
+        rayflow wire where a batch allows it); ``stream_budget=None`` reads
+        OHM_STREAM_BUDGET (default 1 << 21).  The reference's OHM_PALLAS and
+        OHM_EXPAND are not read: on a CUDA device the kernels run, and their
+        plain versions (its "0") run only on the CPU, which is also what its
+        interpret mode ("2") is."""
         self.device = resolve_device(device)
         self.map = map_obj
         #: Take the rayflow wire where a batch allows it; False sends every
         #: batch to the segmented wire.
+        if rayflow is None:
+            rayflow = os.environ.get("OHM_RAYFLOW", "1") != "0"
         self.rayflow = bool(rayflow)
         #: A batch whose estimated record stream (total wall crossings)
         #: exceeds this is split in half before prep (_integrate_with_retry);
         #: 0 disables.
+        if stream_budget is None:
+            stream_budget = int(os.environ.get("OHM_STREAM_BUDGET", 1 << 21))
         self.stream_budget = int(stream_budget)
         dims = map_obj.region_voxel_dims
         if not (dims[0] == dims[1] == dims[2]) or (dims[0] & (dims[0] - 1)) != 0:
@@ -215,10 +227,15 @@ class TorchRayMapper:
 
     @staticmethod
     def _rayflow_grouping(rpad: int) -> tuple[int, bool]:
-        """Strided group size G (64; 8 when rpad does not divide) and the
-        snake-ordering flag, shared by prime_caps and the batch setup."""
-        G = 64 if rpad % 64 == 0 else 8
-        return G, rpad % G == 0
+        """Strided group size G (OHM_RAYFLOW_G, default 64; 8 when rpad does
+        not divide) and the snake-ordering flag (OHM_SNAKE, default on; off
+        where G does not divide rpad), shared by prime_caps and the batch
+        setup (tpu_map.py:236-245)."""
+        G = int(os.environ.get("OHM_RAYFLOW_G", 64))
+        if rpad % G:
+            G = 8
+        snake = os.environ.get("OHM_SNAKE", "1") != "0" and rpad % G == 0
+        return G, snake
 
     @staticmethod
     def _rayflow_group_cap(crossings, G: int, snake: bool, perm=None) -> int:

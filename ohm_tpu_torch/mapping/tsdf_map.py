@@ -10,7 +10,8 @@ reference's does: an arena over 8191 regions or a batch outside the rayflow
 envelope.  Layers other than TSDF stay as the host map holds them.  Per
 batch the device step is ops.integrate_tsdf.integrate_tsdf (the walk front
 end, kernel K1 with voxel planes on the rayflow wire; the fused per-visit
-kernel).  Ray update flags are ignored, as in the reference's
+kernel; with ``per_visit=False``, per-voxel sums under the ``scatter_cap``
+window).  Ray update flags are ignored, as in the reference's
 RayMapperTsdf.
 """
 
@@ -28,15 +29,26 @@ class TorchTsdfMap(TorchRayMapper):
     """TSDF integrator; ``options`` are the reference's TsdfOptions."""
 
     _stop_needs_segments = False
+    _DROPPED_WHAT = ("scatter_cap exceeded (the per-batch deposit window): "
+                     "raise TorchTsdfMap(scatter_cap=...)")
 
     def __init__(self, map_obj, options: TsdfOptions | None = None, capacity: int = 1024,
-                 validate: bool = False, stream_budget: int = 1 << 21, device="cuda",
-                 segment_length: float | None = None, rayflow: bool = True):
+                 segment_length: float | None = None, validate: bool = False,
+                 scatter_cap: int | str = "auto", device="cuda", *,
+                 stream_budget: int | None = None, rayflow: bool | None = None):
+        """The reference's parameters in its order and with its defaults
+        (tsdf_map.py:23-25), then ``device``; ``stream_budget`` and
+        ``rayflow`` (keyword only) default to None, which reads
+        OHM_STREAM_BUDGET and OHM_RAYFLOW as the reference's base class
+        does.  ``scatter_cap`` is the ``per_visit=False`` deposit window
+        (ops.integrate_tsdf): "auto" sizes it from the fourth batch's
+        touched count as the occupancy mapper sizes its own, an int pins
+        it, 0 disables; the per-visit route deposits without a window."""
         self.options = options or TsdfOptions()
         map_obj.layout.add_tsdf()
-        super().__init__(map_obj, capacity=capacity, validate=validate,
-                         stream_budget=stream_budget, device=device,
-                         segment_length=segment_length, rayflow=rayflow)
+        super().__init__(map_obj, capacity=capacity, segment_length=segment_length,
+                         validate=validate, scatter_cap=scatter_cap, rayflow=rayflow,
+                         stream_budget=stream_budget, device=device)
 
     def _arena_layers(self) -> tuple[list[str], str]:
         return ["occupancy", "tsdf_weight", "tsdf_distance"], "inf"
@@ -60,4 +72,6 @@ class TorchTsdfMap(TorchRayMapper):
     def _integrate_device(self, b: dict, cfg: IntegrateConfig, n_rays: int,
                           n_segments: int) -> dict:
         self.last_route = "tsdf"
-        return integrate_tsdf(self.arena.layers, b, self._tsdf_config(cfg))
+        stats = integrate_tsdf(self.arena.layers, b, self._tsdf_config(cfg))
+        self._auto_size_scatter_cap(stats, n_rays)
+        return stats

@@ -24,17 +24,22 @@ with its expand, seed-gather and pair-deposit kernels):
              trunc), whose composition over a segment is one affine+clamp
              map, in ops.segments' blocked order; each voxel's last (w, d)
              is stored in place
-  per batch  (``per_visit=False``) per-voxel sums of w and w*sdf, a unique
-             scatter, one blend and truncation per voxel over the arena
+  per batch  (``per_visit=False``) per-voxel sums of w and w*sdf, the
+             ``scatter_cap`` window, a unique scatter, one blend and
+             truncation per voxel over the arena
 
 The arena is a dict of layer tensors (mapping.arena.VoxelArena.layers); the
 two TSDF planes update in place: the per-visit call reads every voxel's
 pair before it stores that voxel.  Every sort is
 stable and every float sum goes through ops.segments, so a batch gives the
-same bits on every run.  The reference's TPU levers (the ``scatter_cap``
-deposit window and the capped seed fetch) are not ported, so
-``dropped_updates`` is always 0; it stays among the stats so the names
-match.  The stats stay on the device.
+same bits on every run.  On the ``per_visit=False`` route the reference's
+``scatter_cap`` window applies (integrate_tsdf.py:231-270): where
+0 < cap < the record count, only the first ``cap`` voxel-lasts in key order
+deposit and the rest are counted in ``dropped_updates``.  The per-visit
+route has no window, as the reference's kernel route has none (its
+deposit_ok branch: nothing seed-drops), so there ``dropped_updates`` is 0;
+the reference's CPU-only capped seed fetch (integrate_tsdf.py:303-358) is
+not ported.  The stats stay on the device.
 """
 
 from __future__ import annotations
@@ -162,22 +167,37 @@ def integrate_tsdf(arena: dict, b: dict, cfg: TsdfConfig) -> dict:
     real_seg = ids_s != sentinel
     weight, distance = arena["tsdf_weight"], arena["tsdf_distance"]
 
+    voxel_last = last & real_seg
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
     if cfg.per_visit:
         tsdf_cuda.tsdf_visits(weight, distance, ids_s, w_s, wsdf_s, trunc, max_weight,
                               sentinel)
     else:
         if w_s is None:
             w_s = real_seg.to(torch.float32)
-        _blend_batch(weight, distance, ids_s, last & real_seg, w_s, wsdf_s, first,
+        write, dropped = scatter_window(voxel_last, base.scatter_cap)
+        _blend_batch(weight, distance, ids_s, write, w_s, wsdf_s, first,
                      trunc, max_weight, sentinel)
 
     return {
         "missed_updates": aux["missed_n"] + (end_active & end_missed).sum(),
         "overflow": (aux["overflow"] & ray_valid).sum() + aux["truncated"],
-        "touched": (last & real_seg).sum(),
+        "touched": voxel_last.sum(),
         "compaction_dropped": compaction_dropped,
-        "dropped_updates": torch.zeros((), dtype=torch.int64, device=dev),
+        "dropped_updates": dropped,
     }
+
+
+def scatter_window(mask: torch.Tensor, scatter_cap: int) -> tuple:
+    """The reference's deposit window over a key-sorted stream
+    (integrate_tsdf.py:231-270): where 0 < scatter_cap < the stream length,
+    only the first ``scatter_cap`` rows of ``mask`` (in stream order, which
+    is key order) stay set.  Returns (the windowed mask, the count of rows
+    it dropped, a 0-dim int64 tensor)."""
+    if not 0 < scatter_cap < mask.shape[0]:
+        return mask, torch.zeros((), dtype=torch.int64, device=mask.device)
+    kept = mask & (torch.cumsum(mask, 0, dtype=torch.int32) <= scatter_cap)
+    return kept, mask.sum() - kept.sum()
 
 
 def _blend_batch(weight, distance, ids_s, write, w_s, wsdf_s, first, trunc: float,

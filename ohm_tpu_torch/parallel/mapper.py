@@ -49,8 +49,13 @@ class ResidentShardedArena:
     stats are this object's."""
 
     def __init__(self, mesh: ShardMesh, capacity: int, region_shift: int,
-                 layer_names, occupancy_encoding: str = "zero"):
+                 layer_names, scatter_pad: int = 1 << 20, occupancy_encoding: str = "zero"):
+        """The reference's parameters in its order.  ``scatter_pad`` is
+        stored and bounds nothing: the reference sizes each shard's scratch
+        tail with it, and the port's shards have none (their layout is the
+        single-device arena's)."""
         self.mesh = mesh
+        self.scatter_pad = int(scatter_pad)
         self.n_shards = mesh.n_shards
         self.capacity = int(capacity)
         self.region_shift = int(region_shift)
@@ -131,8 +136,13 @@ class ShardedRayMapper:
     AUX_STATS = ("missed_updates", "overflow", "touched")
 
     def __init__(self, map_obj, mesh: ShardMesh, kind: str = "occupancy",
-                 capacity: int = 256, validate: bool = False, ndt_params=None,
-                 tsdf_options=None):
+                 capacity: int = 256, scatter_pad: int = 1 << 20, validate: bool = False,
+                 ndt_params=None, tsdf_options=None):
+        """The reference's parameters in its order and with its defaults
+        (ohm_tpu/parallel/mapper.py:257-259).  ``scatter_pad`` is stored
+        (``self.scatter_pad``) and bounds nothing the port allocates: the
+        reference's shards keep a scratch tail of that length, the port's
+        have none."""
         if kind not in ("occupancy", "ndt", "tsdf"):
             raise ValueError(f"unknown sharded mapper kind {kind!r}")
         self.map = map_obj
@@ -189,8 +199,9 @@ class ShardedRayMapper:
             map_obj.layout.add_tsdf()
             layer_names = ["occupancy", "tsdf_weight", "tsdf_distance"]
 
+        self.scatter_pad = int(scatter_pad)
         self.arena = ResidentShardedArena(
-            mesh, capacity, self.region_shift, layer_names,
+            mesh, capacity, self.region_shift, layer_names, scatter_pad=scatter_pad,
             occupancy_encoding="zero" if kind == "occupancy" else "inf")
         self._stats = {"rays": 0, "segments": 0, "batches": 0,
                        "missed_updates": 0, "overflow": 0, "routed_records": 0}

@@ -167,10 +167,15 @@ class ShardedRayFlowMapper:
                  "routing_dropped")
 
     def __init__(self, map_obj, mesh: ShardMesh, kind: str = "occupancy",
-                 capacity: int = 256, validate: bool = False, ndt_params=None,
-                 tsdf_options=None):
+                 capacity: int = 256, scatter_pad: int = 1 << 20, validate: bool = False,
+                 ndt_params=None, tsdf_options=None):
+        """The reference's parameters in its order and with its defaults
+        (ohm_tpu/parallel/rayflow.py:195-197); ``scatter_pad`` is stored and
+        bounds nothing, as in parallel.mapper.ShardedRayMapper."""
         self._seg = ShardedRayMapper(map_obj, mesh, kind=kind, capacity=capacity,
-                                     ndt_params=ndt_params, tsdf_options=tsdf_options)
+                                     scatter_pad=scatter_pad, ndt_params=ndt_params,
+                                     tsdf_options=tsdf_options)
+        self.scatter_pad = int(scatter_pad)
         self.map = map_obj
         self.mesh = mesh
         self.kind = kind

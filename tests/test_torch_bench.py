@@ -157,6 +157,9 @@ def test_hardware_fused_differential_draws_the_reference_batches(monkeypatch, ca
     monkeypatch.setattr(bench, "box_scene_rays", recorded)
     rng = np.random.default_rng(bench.SEED)
     bench.box_scene_rays(1024, rng)
+    # The fused route on the rayflow wire, the mappers' default (only the
+    # port's mappers run here).
+    monkeypatch.setenv("OHM_RAYFLOW", "1")
     row = bench.hardware_fused_differential(rng, "cpu")
     assert len(drawn) == 7 and all(np.array_equal(a, b) for a, b in zip(want, drawn[1:]))
     assert row["bit_identical"] and row["metric"] == "hardware_fused_differential"
@@ -249,7 +252,10 @@ def test_cuda_device_without_a_card_exits_non_zero(module, extra, tmp_path):
 
 
 @pytest.mark.parametrize("kind", BENCH_WORKER_KINDS)
-def test_worker_loop_gives_the_synchronous_map(kind):
+def test_worker_loop_gives_the_synchronous_map(kind, monkeypatch):
+    # The worker coalesces rayflow wires; tests/conftest.py's OHM_RAYFLOW=0
+    # would send every batch to the segmented wire and the synchronous path.
+    monkeypatch.setenv("OHM_RAYFLOW", "1")
     worker, sync = bench_worker_maps(kind, "cpu")
     a, b = map_bytes(worker), map_bytes(sync)
     assert len(worker.chunks) > 0 and a.keys() == b.keys()

@@ -57,7 +57,7 @@ class _Uploads:
 def _run(batches, async_mode, capacity=64, flags=MapFlag.TRAVERSAL, cls=TorchRayMapper,
          validate=True, **kw):
     m = OccupancyMap(resolution=0.2, flags=flags)
-    mapper = cls(m, capacity=capacity, validate=validate, device="cpu", **kw)
+    mapper = cls(m, capacity=capacity, validate=validate, device="cpu", rayflow=True, **kw)
     uploads = _Uploads(mapper)
     for b in batches:
         if async_mode:
@@ -89,7 +89,7 @@ def test_group_of_queued_batches_goes_up_in_one_copy():
     rng = np.random.default_rng(19)
     batches = [_scene(96, rng) for _ in range(3)] + [_scene(300, rng)]
     m = OccupancyMap(resolution=0.2, flags=MapFlag.NONE)
-    mapper = TorchRayMapper(m, capacity=64, validate=True, device="cpu")
+    mapper = TorchRayMapper(m, capacity=64, validate=True, device="cpu", rayflow=True)
     uploads = _Uploads(mapper)
     mapper._integrate_group([(b, None, None, 0) for b in batches])
     assert uploads.rows == [3, 1]
@@ -149,7 +149,7 @@ def test_chained_dispatch_matches_sequential(fused, monkeypatch):
 
     def run(chained):
         m = OccupancyMap(resolution=0.2, flags=MapFlag.TRAVERSAL)
-        mapper = TorchRayMapper(m, capacity=64, validate=True, device="cpu")
+        mapper = TorchRayMapper(m, capacity=64, validate=True, device="cpu", rayflow=True)
         for b in warm:
             mapper.integrate_rays(b)  # sizes row_cap and scatter_cap alike
         routes = []

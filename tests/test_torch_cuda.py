@@ -88,7 +88,7 @@ def _box_rays(n, rng, half=(10.0, 10.0, 5.0)):
 def bench_batch(cuda):
     rays = _box_rays(8192, np.random.default_rng(2024))
     mapper = TorchRayMapper(OccupancyMap(resolution=0.1, flags=MapFlag.NONE),
-                            capacity=512, device=cuda)
+                            capacity=512, device=cuda, rayflow=True)
     wire, cfg, _ = mapper._rayflow_setup_host(rays, None, None, 0)
     return mapper, unpack_batch(torch.from_numpy(wire).to(cuda), cfg), cfg
 
@@ -187,7 +187,7 @@ def test_mapper_on_card_matches_cpu(cuda):
     occ = []
     for device in (cuda, "cpu"):
         m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
-        mapper = TorchRayMapper(m, capacity=512, validate=True, device=device)
+        mapper = TorchRayMapper(m, capacity=512, validate=True, device=device, rayflow=True)
         mapper.integrate_rays(rays)
         mapper.sync_voxels()
         oi = m.layer_index("occupancy")
@@ -298,7 +298,7 @@ def test_gather_kernel_matches_plain(bench_batch):
 @pytest.mark.parametrize("threshold", [3, 1, 0])
 def test_ndt_flag_gather_matches_plain(cuda, threshold):
     cfg = TorchNdtMap(OccupancyMap(resolution=0.2, flags=MapFlag.NONE), capacity=1024,
-                      device=cuda)._config(0)
+                      device=cuda, rayflow=True)._config(0)
     rng = np.random.default_rng(30 + threshold)
     occ, count = ndt_flag_arena(cfg.sentinel + 1, cfg.sentinel, rng, 50_000, 50_000)
     occ, count = torch.from_numpy(occ).to(cuda), torch.from_numpy(count.view(np.int32)).to(cuda)
@@ -365,7 +365,8 @@ def _ndt_run(device, tm, rng_seed=6):
     through[1::2] = np.column_stack([rng.uniform(-0.8, 0.8, 60), rng.uniform(-0.8, 0.8, 60),
                                      np.full(60, -0.8)])
     m = OccupancyMap(resolution=0.25, flags=MapFlag.NONE)
-    mapper = TorchNdtMap(m, NdtParams(ndt_tm=tm), capacity=64, validate=True, device=device)
+    mapper = TorchNdtMap(m, NdtParams(ndt_tm=tm), capacity=64, validate=True, device=device,
+                         rayflow=True)
     for rays in [build[i:i + 50] for i in range(0, 400, 50)] + [through[:60], through[60:]]:
         mapper.integrate_rays(rays, intensities=rng.uniform(10, 20, len(rays) // 2))
     mapper.sync_voxels()
@@ -578,7 +579,7 @@ def _tsdf_run(device):
     rays[1::2] = dirs * 2.0
     m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
     mapper = TorchTsdfMap(m, TsdfOptions(default_truncation_distance=0.3), capacity=64,
-                          validate=True, device=device)
+                          validate=True, device=device, rayflow=True)
     for i in range(0, 4000, 1000):
         mapper.integrate_rays(rays[i:i + 1000])
     mapper.sync_voxels()
@@ -623,7 +624,7 @@ def _layers_run(device, use_async=False):
     rng = np.random.default_rng(9)
     flags = MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL
     m = OccupancyMap(resolution=0.1, flags=flags)
-    mapper = TorchRayMapper(m, capacity=512, validate=True, device=device)
+    mapper = TorchRayMapper(m, capacity=512, validate=True, device=device, rayflow=True)
     submit = mapper.integrate_rays_async if use_async else mapper.integrate_rays
     for i in range(4):
         submit(_box_rays(2048, rng), timestamps=20.0 + i + np.arange(2048) * 1e-4)
@@ -756,7 +757,7 @@ def _k1_batch(device, cdict: int, fdict: bool):
     on an axis the ray crosses once, which reads as zero, invalid
     rays, more than S crossings)."""
     mapper = TorchRayMapper(OccupancyMap(resolution=0.1, flags=MapFlag.NONE), capacity=512,
-                            device=device)
+                            device=device, rayflow=True)
     rf = prepare_rayflow(mapper.map, _box_rays(2048, np.random.default_rng(40 + cdict),
                                                half=(6.0, 6.0, 3.0)))
     mapper.arena.ensure_regions(rf.region_keys, host_map=mapper.map)
@@ -866,7 +867,7 @@ def test_sharded_rayflow_mapper_on_card_matches_single_device(cuda):
             mapper = ShardedRayFlowMapper(m, ShardMesh.repeat(cuda, 4), capacity=512,
                                           validate=True)
         else:
-            mapper = TorchRayMapper(m, capacity=512, validate=True, device=cuda)
+            mapper = TorchRayMapper(m, capacity=512, validate=True, device=cuda, rayflow=True)
         for rays in batches:
             mapper.integrate_rays(rays)
         mapper.sync_voxels()
@@ -897,7 +898,8 @@ def _route_run(device, fused, batches, worker=False, flags=MapFlag.TRAVERSAL, **
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OHM_FUSED", fused)
         m = OccupancyMap(resolution=0.1, flags=flags)
-        mapper = TorchRayMapper(m, capacity=512, validate=True, device=device, **kw)
+        mapper = TorchRayMapper(m, capacity=512, validate=True, device=device, rayflow=True,
+                                **kw)
     mapper.prime_caps(batches)
     routes = []
     half = len(batches) // 2

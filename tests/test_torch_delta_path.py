@@ -50,7 +50,7 @@ def integrate_port(rays, scatter_cap, repeats=1, setup=None, validate=True, capa
         setup(m)
     mapper = TorchRayMapper(m, capacity=capacity, validate=validate, device="cpu",
                             scatter_cap=scatter_cap,
-                            delta_path=scatter_cap not in (0, "auto"))
+                            delta_path=scatter_cap not in (0, "auto"), rayflow=True)
     for _ in range(repeats):
         mapper.integrate_rays(rays)
     mapper.sync_voxels()
@@ -175,11 +175,12 @@ def test_auto_scatter_cap_sizes_from_fourth_batch(box_room):
     batches run the split apply), as the reference's; once sized, a
     ``delta_path`` mapper routes to the delta path and stays exact."""
     m = PortMap(resolution=0.25, flags=MapFlag.NONE)
-    mapper = TorchRayMapper(m, capacity=128, validate=True, device="cpu", delta_path=True)
+    mapper = TorchRayMapper(m, capacity=128, validate=True, device="cpu", delta_path=True,
+                            rayflow=True)
     ref = TpuRayMapper(OccupancyMap(resolution=0.25, flags=MapFlag.NONE), capacity=128,
                        delta_path=True)
     m_u = PortMap(resolution=0.25, flags=MapFlag.NONE)
-    mp_u = TorchRayMapper(m_u, capacity=128, device="cpu", scatter_cap=0)
+    mp_u = TorchRayMapper(m_u, capacity=128, device="cpu", scatter_cap=0, rayflow=True)
     routes = []
     for i in range(5):
         mapper.integrate_rays(box_room)

@@ -617,7 +617,7 @@ def test_layered_heightmap_matches_the_jax_package():
     ref_m = ref_map.OccupancyMap(resolution=0.1, flags=ref_map.MapFlag.NONE)
     port_m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
     ref = TpuRayMapper(ref_m, capacity=64, rayflow=True, scatter_cap=0)
-    port = TorchRayMapper(port_m, capacity=64, device="cpu")
+    port = TorchRayMapper(port_m, capacity=64, device="cpu", rayflow=True)
     for rays in batches:
         ref.integrate_rays(rays)
         port.integrate_rays(rays)

@@ -21,6 +21,14 @@ from ohm_tpu_torch.ops import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+def _port_env() -> dict:
+    """A subprocess's environment: the repository on the path, and the
+    rayflow wire that the port's mappers take by default (tests/conftest.py
+    sets OHM_RAYFLOW=0 for the test run, which these scripts would
+    inherit)."""
+    return dict(os.environ, PYTHONPATH=REPO, OHM_RAYFLOW="1")
+
 _SCRIPT = """
 import sys
 import numpy as np
@@ -90,7 +98,7 @@ print(sorted(n for n in sys.modules if n == "jax" or n.startswith(("jax.", "ohm_
 
 
 def test_import_and_cpu_integrate_leave_jax_and_ohm_tpu_out():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = _port_env()
     out = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -124,7 +132,7 @@ print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu."))
 
 
 def test_queries_import_and_run_with_jax_blocked():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = _port_env()
     out = subprocess.run([sys.executable, "-c", _QUERY_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -163,7 +171,7 @@ def test_apps_import_and_run_with_jax_blocked():
     """ohm_tpu_torch.app, .io and .heightmap import, and ohmpop builds a map
     from a .laz on the CPU, with JAX blocked and no module of ohm_tpu
     loaded."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = _port_env()
     out = subprocess.run([sys.executable, "-c", _APPS_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -193,7 +201,7 @@ print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu."))
 def test_parallel_imports_and_steps_with_jax_blocked():
     """ohm_tpu_torch.parallel imports, and a sharded step runs on both wires
     on the CPU, with JAX blocked and no module of ohm_tpu loaded."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = _port_env()
     out = subprocess.run([sys.executable, "-c", _PARALLEL_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -217,7 +225,7 @@ def test_bench_modules_import_and_run_with_jax_blocked():
     """ohm_tpu_torch.bench and ohm_tpu_torch.scripts.bench_modes import and
     run on the CPU with JAX blocked, and load no module of ohm_tpu, nor the
     root bench.py or scripts/."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = _port_env()
     out = subprocess.run([sys.executable, "-c", _BENCH_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -263,7 +271,7 @@ def test_apply_routes_import_and_run_with_jax_blocked():
     ohm_tpu_torch.scripts.phase_timing import and run on the CPU with JAX
     blocked, and load no module of ohm_tpu, nor the root bench.py or
     scripts/."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = _port_env()
     out = subprocess.run([sys.executable, "-c", _ROUTES_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -349,18 +357,19 @@ def test_what_is_not_ported_raises():
     with the segments counted."""
     m = OccupancyMap(resolution=0.1, flags=MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL
                      | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL)
-    mapper = TorchRayMapper(m, capacity=64, device="cpu")
+    mapper = TorchRayMapper(m, capacity=64, device="cpu", rayflow=True)
     assert sorted(mapper.arena.layers) == ["incident", "mean_coord", "mean_count",
                                            "occupancy", "touch_time", "traversal"]
     m.layout.add_intensity()  # an NDT-TM layer the occupancy mapper does not update
-    mapper = TorchRayMapper(m, capacity=64, device="cpu")
+    mapper = TorchRayMapper(m, capacity=64, device="cpu", rayflow=True)
     assert "intensity" not in mapper.arena.layers
     _integrates_and_keeps(mapper, m, "intensity")
-    big = TorchRayMapper(OccupancyMap(resolution=0.1), capacity=8192, device="cpu")
+    big = TorchRayMapper(OccupancyMap(resolution=0.1), capacity=8192, device="cpu",
+                         rayflow=True)
     rays = np.array([[0.0, 0.0, 0.0], [1.0, 0.5, 0.2]])
     assert big.integrate_rays(rays) == 1
     assert big.stats["segments"] == 1 and big._k_cache_rf == 4  # not the rayflow wire
-    mapper = TorchRayMapper(OccupancyMap(resolution=0.1), capacity=64, device="cpu")
+    mapper = TorchRayMapper(OccupancyMap(resolution=0.1), capacity=64, device="cpu", rayflow=True)
     assert mapper.integrate_rays(rays, ray_update_flags=RayFlag.STOP_ON_FIRST_OCCUPIED) == 1
     assert mapper.integrate_rays_async(
         rays, ray_update_flags=RayFlag.STOP_ON_FIRST_OCCUPIED) == 1
@@ -370,7 +379,7 @@ def test_what_is_not_ported_raises():
     # A ray over 32 regions (0.8 m regions, 40 m ray) leaves the rayflow
     # envelope: 51 segments of at most one region edge.
     fine = TorchRayMapper(OccupancyMap(resolution=0.1, region_voxel_dims=8),
-                          capacity=64, device="cpu")
+                          capacity=64, device="cpu", rayflow=True)
     fine.integrate_rays(np.array([[0.0, 0.0, 0.0], [40.0, 0.0, 0.0]]))
     assert fine.stats["segments"] == 51 and fine.stats["rays"] == 1
 
@@ -388,7 +397,7 @@ def test_what_is_not_ported_under_ndt_raises():
                                      (MapFlag.TOUCH_TIME, "touch_time", "touch_time"),
                                      (MapFlag.INCIDENT_NORMAL, "incident_normal", "incident")):
         m = OccupancyMap(resolution=0.1, flags=flag)
-        ndt = TorchNdtMap(m, capacity=64, validate=True, device="cpu")
+        ndt = TorchNdtMap(m, capacity=64, validate=True, device="cpu", rayflow=True)
         assert arena_layer in ndt.arena.layers
         ndt.integrate_rays(rays, timestamps=10.0 + np.arange(32) * 1e-3)
         ndt.sync_voxels()
@@ -399,11 +408,11 @@ def test_what_is_not_ported_under_ndt_raises():
     # holds it.
     m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
     m.layout.add_intensity()
-    ndt = TorchNdtMap(m, NdtParams(), capacity=64, device="cpu")
+    ndt = TorchNdtMap(m, NdtParams(), capacity=64, device="cpu", rayflow=True)
     assert "intensity" not in ndt.arena.layers
     _integrates_and_keeps(ndt, m, "intensity")
     mapper = TorchNdtMap(OccupancyMap(resolution=0.1, flags=MapFlag.NONE), capacity=64,
-                         device="cpu")
+                         device="cpu", rayflow=True)
     assert mapper.arena.occupancy_encoding == "inf"
     assert torch.isposinf(mapper.arena.occupancy).all()
     # The worker is the base mapper's: queued NDT batches give the map the
@@ -413,7 +422,7 @@ def test_what_is_not_ported_under_ndt_raises():
     maps = []
     for submit in ("integrate_rays", "integrate_rays_async"):
         m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
-        ndt = TorchNdtMap(m, capacity=64, validate=True, device="cpu")
+        ndt = TorchNdtMap(m, capacity=64, validate=True, device="cpu", rayflow=True)
         for _ in range(2):
             getattr(ndt, submit)(rays)
         ndt.sync_voxels()
@@ -463,7 +472,7 @@ def test_what_is_not_ported_under_tsdf_raises():
     envelope; it adds its layer to the map and keeps the others as they
     are."""
     m = OccupancyMap(resolution=0.1, region_voxel_dims=8, flags=MapFlag.VOXEL_MEAN)
-    mapper = TorchTsdfMap(m, capacity=64, device="cpu")
+    mapper = TorchTsdfMap(m, capacity=64, device="cpu", rayflow=True)
     assert m.layer_index("tsdf") >= 0 and m.layer_index("mean") >= 0
     assert sorted(mapper.arena.layers) == ["occupancy", "tsdf_distance", "tsdf_weight"]
     mapper.integrate_rays(np.array([[0.0, 0.0, 0.0], [40.0, 0.0, 0.0]]))

@@ -144,7 +144,7 @@ def _run_port(layers, use_async=False, record=True):
     m = PortMap(resolution=0.1, region_voxel_dims=8, flags=_flags(layers, PortMapFlag))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OHM_FUSED", "0")  # the reference's split-phase apply, as _run_reference's
-        port = TorchRayMapper(m, capacity=32, validate=True, device="cpu")
+        port = TorchRayMapper(m, capacity=32, validate=True, device="cpu", rayflow=True)
     with pytest.MonkeyPatch.context() as mp:
         if record:
             inner_expand, inner_dispatch = port_torch_map.expand_records, port._dispatch
@@ -282,7 +282,7 @@ def test_incident_normal_reads_denormal_directions_as_zero():
             ref.integrate_rays(rays, timestamps=ts)
         ref.sync_voxels()
     pm = PortMap(resolution=0.1, region_voxel_dims=8, flags=_flags(layers, PortMapFlag))
-    port = TorchRayMapper(pm, capacity=64, validate=True, device="cpu")
+    port = TorchRayMapper(pm, capacity=64, validate=True, device="cpu", rayflow=True)
     for rays, ts in zip(batches, stamps):
         port.integrate_rays(rays, timestamps=ts)
     port.sync_voxels()
@@ -325,7 +325,7 @@ def test_worker_error_surfaces_on_flush():
     on the next flush; the batches around it are integrated, and the mapper
     goes on working."""
     m = PortMap(resolution=0.1, region_voxel_dims=8, flags=PortMapFlag.TRAVERSAL)
-    mapper = TorchRayMapper(m, capacity=64, validate=True, device="cpu")
+    mapper = TorchRayMapper(m, capacity=64, validate=True, device="cpu", rayflow=True)
     good = _cluster(32, np.random.default_rng(3), CENTRES[0], np.full((1, 3), 0.5))
     mapper.integrate_rays_async(good)
     mapper.integrate_rays_async(np.array([[0.0, 0.0, 0.0], [60.0, 0.0, 0.0]]))
@@ -354,7 +354,7 @@ def test_worker_under_thread_switching():
         for queued in (False, True):
             m = PortMap(resolution=0.1, region_voxel_dims=8, flags=PortMapFlag.TOUCH_TIME
                         | PortMapFlag.TRAVERSAL)
-            mapper = TorchRayMapper(m, capacity=16, validate=True, device="cpu")
+            mapper = TorchRayMapper(m, capacity=16, validate=True, device="cpu", rayflow=True)
             submit = mapper.integrate_rays_async if queued else mapper.integrate_rays
             for i, (rays, ts) in enumerate(zip(batches, stamps)):
                 submit(rays, timestamps=ts)
@@ -397,7 +397,8 @@ def test_all_layers_match_the_oracle():
     batches = [_box_room(150, rng) for _ in range(4)]
     stamps = [50.0 + i + np.arange(150) * 1e-3 for i in range(4)]
     maps = []
-    for make in (lambda m: TorchRayMapper(m, capacity=256, validate=True, device="cpu"),
+    for make in (lambda m: TorchRayMapper(m, capacity=256, validate=True, device="cpu",
+                                          rayflow=True),
                  RayMapperOccupancy):
         m = PortMap(resolution=0.25, flags=flags)
         mapper = make(m)

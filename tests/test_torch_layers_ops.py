@@ -73,7 +73,7 @@ def _setups(layers, rays, timestamps=None, flags=0):
     ref = TpuRayMapper(OccupancyMap(resolution=0.1, flags=_flags(layers, MapFlag)),
                        capacity=64, rayflow=True)
     port = TorchRayMapper(PortMap(resolution=0.1, flags=_flags(layers, PortMapFlag)),
-                          capacity=64, device="cpu")
+                          capacity=64, device="cpu", rayflow=True)
     return (ref._rayflow_setup_host(rays, timestamps, None, flags),
             port._rayflow_setup_host(rays, timestamps, None, flags))
 

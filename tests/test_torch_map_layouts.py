@@ -73,7 +73,7 @@ def _run(kind: str, layer: str, port: bool):
         getattr(m.layout, f"add_{layer}")()
         if port:
             mapper = (TorchNdtMap if kind == "ndt" else TorchRayMapper)(
-                m, capacity=16, validate=True, device="cpu")
+                m, capacity=16, validate=True, device="cpu", rayflow=True)
             inner = mapper._dispatch
 
             def dispatch(wire, cfg, n_rays):

@@ -117,7 +117,7 @@ def runs():
             out[name] = {
                 "spec": spec,
                 "ref": _run(TpuRayMapper, OccupancyMap, spec, rayflow=True, scatter_cap=0),
-                "port": _run(TorchRayMapper, PortMap, spec, device="cpu"),
+                "port": _run(TorchRayMapper, PortMap, spec, device="cpu", rayflow=True),
             }
     return out
 

@@ -205,7 +205,7 @@ def test_ndt_walk_stream_masks_a_prefix_of_each_run(monkeypatch):
     through[1::2] = np.column_stack([rng.uniform(-0.3, 0.3, 120), rng.uniform(-0.3, 0.3, 120),
                                      np.full(120, -0.8)])
     mapper = TorchNdtMap(PortMap(resolution=0.25, flags=PortMapFlag.NONE), capacity=64,
-                         miss_k=11, device="cpu")
+                         miss_k=11, device="cpu", rayflow=True)
     for rays in [build[i:i + 100] for i in range(0, 400, 100)] + [through]:
         mapper.integrate_rays(rays)
     assert mapper.stats["ndt_overflow"] > 0

@@ -162,7 +162,7 @@ def _run_reference(mp, spec, rec):
 def _run_port(mp, spec, rec):
     m = PortMap(resolution=0.25, region_voxel_dims=8, flags=PortMapFlag.NONE)
     port = TorchNdtMap(m, PortNdtParams(ndt_tm=spec.get("tm", False)), device="cpu",
-                       **_mapper_args(spec))
+                       rayflow=True, **_mapper_args(spec))
     inner, inner_dispatch = port_ndt_map.integrate_ndt, port._dispatch
 
     def integrate(arena, b, cfg):

@@ -328,7 +328,7 @@ def test_applied_plus_missed_is_every_active_record(path):
     rays = np.zeros((2 * 256, 3))
     rays[1::2] = rng.uniform(-5, 5, (256, 3))
     m = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
-    mapper = TorchRayMapper(m, capacity=256, device="cpu")
+    mapper = TorchRayMapper(m, capacity=256, device="cpu", rayflow=True)
     if path == "split":
         wire, cfg, _ = mapper._rayflow_setup_host(rays, None, None, 0)
         b = unpack_batch(torch.from_numpy(wire), cfg)

@@ -144,7 +144,7 @@ def test_a2a_step_from_a_carried_state_matches_the_reference(meshes):
     ref.arena.ensure_regions(prepared_j.region_keys)
     batch_j, pairs_j = ref_source_batch(prepared_j, ref.arena, jmesh)
     port_mapper = TorchRayMapper(OccupancyMap(resolution=RES, flags=MapFlag.NONE),
-                                 capacity=64, device="cpu")
+                                 capacity=64, device="cpu", rayflow=True)
     prepared_p = prepare_ray_batch(port_mapper.map, rays,
                                    segment_length=port_mapper.segment_length)
     arena.ensure_regions(prepared_p.region_keys)

@@ -255,7 +255,7 @@ def test_arena_cache_stats(wall_map):
     from ohm_tpu_torch.core.map import OccupancyMap, MapFlag
 
     m = OccupancyMap(resolution=0.25, flags=MapFlag.NONE)
-    mapper = TorchRayMapper(m, capacity=4, validate=True, device="cpu")
+    mapper = TorchRayMapper(m, capacity=4, validate=True, device="cpu", rayflow=True)
     rng = np.random.default_rng(14)
     for i in range(6):
         centre = np.array([i * 10.0, 0.0, 0.0])

@@ -59,7 +59,7 @@ def edge_batch():
     cases (testing.edge_rays), as numpy arrays, with its config."""
     rays = _scene()
     mapper = TorchRayMapper(PortMap(resolution=0.1, flags=MapFlag.NONE), capacity=64,
-                            device="cpu")
+                            device="cpu", rayflow=True)
     mapper.prime_caps([rays])
     wire, cfg, _ = mapper._rayflow_setup_host(rays, None, None, 0)
     b = unpack_batch(torch.from_numpy(wire), cfg)

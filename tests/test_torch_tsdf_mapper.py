@@ -141,7 +141,7 @@ def _run_port(spec):
     with pytest.MonkeyPatch.context() as mp:
         m = PortMap(resolution=0.25, region_voxel_dims=8, flags=PortMapFlag.NONE)
         port = TorchTsdfMap(m, TsdfOptions(**spec["options"]), capacity=spec["capacity"],
-                            validate=True, device="cpu")
+                            validate=True, device="cpu", rayflow=True)
         inner, inner_dispatch = port_tsdf_map.integrate_tsdf, port._dispatch
 
         def integrate(arena, b, cfg):

@@ -125,7 +125,7 @@ def test_unpack_ndt_wire_with_intensity_bit_identical():
     ref = TpuNdtMap(OccupancyMap(resolution=0.1, flags=MapFlag.NONE),
                     RefNdtParams(ndt_tm=True), capacity=64)
     port = TorchNdtMap(PortMap(resolution=0.1, flags=PortMapFlag.NONE),
-                       NdtParams(ndt_tm=True), capacity=64, device="cpu")
+                       NdtParams(ndt_tm=True), capacity=64, device="cpu", rayflow=True)
     w_ref, c_ref, _ = ref._rayflow_setup_host(rays, None, intens, 0)
     w_port, c_port, _ = port._rayflow_setup_host(rays, None, intens, 0)
     assert np.array_equal(w_ref, w_port)
@@ -146,7 +146,7 @@ def test_unpack_ndt_wire_with_intensity_bit_identical():
 def test_unpack_rejects_a_wire_of_the_wrong_layout(prepared):
     (wire, _), table_k = _wires(prepared, 1, True)
     m = PortMap(resolution=0.1, flags=PortMapFlag.NONE)
-    cfg = TorchRayMapper(m, capacity=64, device="cpu")._config(0, table_k=table_k)
+    cfg = TorchRayMapper(m, capacity=64, device="cpu", rayflow=True)._config(0, table_k=table_k)
     with pytest.raises(ValueError):
         unpack_batch(torch.from_numpy(wire), cfg)  # cdict 0 layout
 
@@ -160,7 +160,7 @@ def test_mapper_setup_wire_and_config_match():
     m_ref = OccupancyMap(resolution=0.1, flags=MapFlag.NONE)
     m_port = PortMap(resolution=0.1, flags=PortMapFlag.NONE)
     ref = TpuRayMapper(m_ref, capacity=64, rayflow=True)
-    port = TorchRayMapper(m_port, capacity=64, device="cpu")
+    port = TorchRayMapper(m_port, capacity=64, device="cpu", rayflow=True)
     ref.prime_caps(batches)
     port.prime_caps(batches)
     names = [f.name for f in dataclasses.fields(IntegrateConfig)]
