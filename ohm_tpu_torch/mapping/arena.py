@@ -29,6 +29,9 @@ import torch
 
 from ohm_tpu_torch.core import layout as layoutmod
 from ohm_tpu_torch.ops.regiontable import HostRegionTable
+from ohm_tpu_torch.utils.profile import Profile
+
+_PROFILE = Profile.instance()
 
 
 class NeedsEviction(RuntimeError):
@@ -216,14 +219,17 @@ class VoxelArena:
         chunk = host_map.region(key)
         sl = self._slot_slice(slot)
         for name, data in _read_host_chunk(host_map, chunk, self.layer_names).items():
-            self.layers[name][sl] = torch.from_numpy(
-                self._to_device(name, data)).to(self.device)
+            with _PROFILE.sync():  # a pageable copy blocks the host
+                self.layers[name][sl] = torch.from_numpy(
+                    self._to_device(name, data)).to(self.device)
 
     def _download_region(self, host_map, key, slot: int):
         """Pull one arena slot back into the host map chunk and clear it."""
         sl = self._slot_slice(slot)
-        pulled = {name: self._to_host(name, t[sl].cpu().numpy())
-                  for name, t in self.layers.items()}
+        pulled = {}
+        for name, t in self.layers.items():
+            with _PROFILE.sync():
+                pulled[name] = self._to_host(name, t[sl].cpu().numpy())
         _write_host_chunk(host_map, host_map.region(key, allow_create=True), pulled)
         for name, t in self.layers.items():
             t[sl] = self._clear(name)

@@ -37,6 +37,9 @@ from ohm_tpu_torch.oracle.ndt import NdtParams, ndt_adaptation_rate_from_miss_pr
 from ohm_tpu_torch.mapping.torch_map import TorchRayMapper
 from ohm_tpu_torch.ops.config import IntegrateConfig, NdtConfig
 from ohm_tpu_torch.ops.integrate_ndt import integrate_ndt
+from ohm_tpu_torch.utils.profile import Profile
+
+_PROFILE = Profile.instance()
 
 _AUTO_MISS_K = 1 << 16
 
@@ -127,7 +130,8 @@ class TorchNdtMap(TorchRayMapper):
         count (one read back; 2x headroom, a power of two, at least 4096)."""
         if not self._auto_miss_k or self._miss_k_sized or self._stats["batches"] < 3:
             return
-        flagged = int(stats["ndt_flagged"])
+        with _PROFILE.sync():
+            flagged = int(stats["ndt_flagged"])
         k = 4096
         while k < 2 * flagged:
             k *= 2

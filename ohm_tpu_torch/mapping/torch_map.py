@@ -39,6 +39,17 @@ copy and runs a full, sized group as one chain (OHM_CHAIN);
 ``flush``, ``sync_voxels`` and ``stats`` wait for it and raise what it
 raised.
 
+Each batch the mapper takes gets a sequence number, and the process-wide
+span recorder (``utils.profile.Profile.instance()``), on while a
+torch.profiler session runs on the caller's thread, records the worker's
+spans under it: ``worker.wait`` (blocked on the empty queue),
+``worker.group`` (one ``_integrate_group``), ``worker.prep`` (a batch's host
+half), ``worker.upload`` (on a card with its ``worker.copy``: the issue of
+the pinned copy, which ties the device trace's copies to the host's clock),
+``worker.dispatch`` (decode to the last launch of a batch or chain), and a
+``sync`` span, counted in ``host_syncs``, around every blocking device read
+or copy.
+
 Subclasses (mapping.ndt_map.TorchNdtMap, mapping.tsdf_map.TorchTsdfMap)
 override the hooks: the arena's layers ``_arena_layers``, the wire's
 intensity block ``_rayflow_intensity``, whether STOP_ON_FIRST_OCCUPIED
@@ -72,6 +83,9 @@ from ohm_tpu_torch.ops.ddawalk import walk_total_cap
 from ohm_tpu_torch.ops.integrate import (apply_decoded, delta_path_ok, expand_records,
                                          integrate_chain, integrate_delta, integrate_occupancy)
 from ohm_tpu_torch.ops.wire import decode
+from ohm_tpu_torch.utils.profile import Profile
+
+_PROFILE = Profile.instance()
 
 #: The side layers the occupancy mapper integrates.
 SIDE_LAYERS = (MEAN_LAYER, TRAVERSAL_LAYER, TOUCH_TIME_LAYER, INCIDENT_NORMAL_LAYER)
@@ -194,6 +208,7 @@ class TorchRayMapper:
         self._worker = None
         self._worker_error = None
         self._staged = []  # pinned upload buffers with the event of their copy
+        self._batches_taken = 0  # sequence numbers given to batches
 
     def _arena_layers(self) -> tuple[list[str], str]:
         """The arena's layers and its occupancy encoding."""
@@ -390,7 +405,8 @@ class TorchRayMapper:
             return
         if self.scatter_cap == 0 and self._stats["batches"] < 3:
             return
-        t = int(stats["touched"])
+        with _PROFILE.sync():
+            t = int(stats["touched"])
         cap = 1 << 16
         while cap < 2 * t:
             cap *= 2
@@ -419,7 +435,8 @@ class TorchRayMapper:
             return
         if self.row_cap == 0 and self._stats["batches"] < 3:
             return
-        m = int(stats.get("row_lasts_max", -1))
+        with _PROFILE.sync():
+            m = int(stats.get("row_lasts_max", -1))
         if m < 0:
             return
         cap = 256
@@ -436,7 +453,17 @@ class TorchRayMapper:
         half and retried (the reference's cache-full flush-and-retry,
         ohmgpu/GpuMap.cpp:922-1017)."""
         ray_update_flags = normalize_reverse_walk(ray_update_flags)
+        _PROFILE.set_batch(self._take_batch())
         return self._integrate_with_retry(rays, intensities, timestamps, ray_update_flags)
+
+    def _take_batch(self, n: int = 1) -> int:
+        """The sequence number of the first of ``n`` batches the mapper
+        takes now; the span recorder's switch is sampled here, on the
+        caller's thread."""
+        _PROFILE.refresh()
+        first = self._batches_taken
+        self._batches_taken += n
+        return first
 
     def integrate_rays_async(self, rays, intensities=None, timestamps=None,
                              ray_update_flags: int = 0) -> int:
@@ -453,7 +480,7 @@ class TorchRayMapper:
             self._queue = queue.Queue(maxsize=max(4, self._coalesce))
             self._worker = threading.Thread(target=self._work, daemon=True)
             self._worker.start()
-        self._queue.put((rays, intensities, timestamps, ray_update_flags))
+        self._queue.put((rays, intensities, timestamps, ray_update_flags, self._take_batch()))
         return np.asarray(rays).reshape(-1, 3).shape[0] // 2
 
     def _work(self) -> None:
@@ -468,7 +495,9 @@ class TorchRayMapper:
                    else contextlib.nullcontext())
         with on_card:
             while True:
-                items = [self._queue.get()]
+                _PROFILE.set_batch(None)
+                with _PROFILE.span("worker.wait"):
+                    items = [self._queue.get()]
                 while len(items) < self._coalesce:
                     try:
                         items.append(self._queue.get_nowait())
@@ -493,8 +522,14 @@ class TorchRayMapper:
         budget presplit, CacheFull, another wire length) flushes the group
         and takes the synchronous path.  A batch that raises is skipped and
         the others are integrated; the first error is raised at the end
-        (the reference's worker drops the rest of the group instead)."""
-        pending = []  # (numpy wire, cfg, n_rays, flags)
+        (the reference's worker drops the rest of the group instead).
+        An item is (rays, intensities, timestamps, flags, batch number), as
+        the worker's queue holds it; items without the number are numbered
+        here."""
+        if items and len(items[0]) == 4:
+            first = self._take_batch(len(items))
+            items = [(*item, first + i) for i, item in enumerate(items)]
+        pending = []  # (numpy wire, cfg, n_rays, flags, batch)
         error = None
 
         def flush():
@@ -502,52 +537,63 @@ class TorchRayMapper:
                 return
             group = list(pending)
             pending.clear()
+            _PROFILE.set_batch(group[0][4])
             stacked = self._upload([p[0] for p in group])
             cfg = self._chain_cfg(group) if len(group) > 1 else None
             if cfg is not None:
                 self._dispatch_chain(stacked, group, cfg)
             else:
-                for row, (_, row_cfg, n_rays, _) in zip(stacked, group):
-                    self._dispatch(row, row_cfg, n_rays)
+                for row, p in zip(stacked, group):
+                    _PROFILE.set_batch(p[4])
+                    self._dispatch(row, p[1], p[2])
 
-        def add(rays, intensities, timestamps, fl):
+        def add(rays, intensities, timestamps, fl, batch):
+            def prep(allow_evict):
+                _PROFILE.set_batch(batch)
+                with _PROFILE.span("worker.prep"):
+                    return self._rayflow_setup_host(r, timestamps, intensities, fl,
+                                                    allow_evict=allow_evict)
+
+            def synchronous(integrate):
+                flush()
+                _PROFILE.set_batch(batch)
+                integrate(r, intensities, timestamps, fl)
+
             r = np.asarray(rays, dtype=np.float64).reshape(-1, 3)
             presplit = (self.stream_budget and r.shape[0] // 2 > 256
                         and self._stream_estimate(r) > self.stream_budget)
             if not self.rayflow or presplit or fl & RayFlag.STOP_ON_FIRST_OCCUPIED:
-                flush()
-                self._integrate_with_retry(r, intensities, timestamps, fl)
+                synchronous(self._integrate_with_retry)
                 return
             self.map.touch()
             try:
-                setup = self._rayflow_setup_host(r, timestamps, intensities, fl,
-                                                 allow_evict=not pending)
+                setup = prep(not pending)
             except NeedsEviction:
                 flush()
                 try:
-                    setup = self._rayflow_setup_host(r, timestamps, intensities, fl)
+                    setup = prep(True)
                 except CacheFull:
-                    self._split_and_integrate(r, intensities, timestamps, fl)
+                    synchronous(self._split_and_integrate)
                     return
             except CacheFull:
-                flush()
-                self._split_and_integrate(r, intensities, timestamps, fl)
+                synchronous(self._split_and_integrate)
                 return
             if setup is None:  # the segmented wire
-                flush()
-                self._integrate_with_retry(r, intensities, timestamps, fl)
+                synchronous(self._integrate_with_retry)
                 return
             wire, cfg, n_rays = setup
             if pending and wire.shape != pending[0][0].shape:
                 flush()
-            pending.append((wire, cfg, n_rays, fl))
+            pending.append((wire, cfg, n_rays, fl, batch))
 
-        for item in items:
-            try:
-                add(*item)
-            except Exception as e:
-                error = error or e
-        flush()
+        with _PROFILE.span("worker.group", batch=items[0][4] if items else None,
+                           count=len(items)):
+            for item in items:
+                try:
+                    add(*item)
+                except Exception as e:
+                    error = error or e
+            flush()
         if error is not None:
             raise error
 
@@ -557,17 +603,19 @@ class TorchRayMapper:
         blocking the host (a pageable copy synchronizes the stream); the
         buffer is kept, with an event recorded after its copy, until that
         event has passed."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(np.stack(wires)).to(self.device)
-        staged = torch.empty((len(wires), wires[0].shape[0]), dtype=torch.uint8,
-                             pin_memory=True)
-        np.stack(wires, out=staged.numpy())
-        stacked = staged.to(self.device, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record()
-        self._staged = [(buf, ev) for buf, ev in self._staged if not ev.query()]
-        self._staged.append((staged, copied))
-        return stacked
+        with _PROFILE.span("worker.upload", count=len(wires)):
+            if self.device.type != "cuda":
+                return torch.from_numpy(np.stack(wires)).to(self.device)
+            staged = torch.empty((len(wires), wires[0].shape[0]), dtype=torch.uint8,
+                                 pin_memory=True)
+            np.stack(wires, out=staged.numpy())
+            with _PROFILE.span("worker.copy"):
+                stacked = staged.to(self.device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            self._staged = [(buf, ev) for buf, ev in self._staged if not ev.query()]
+            self._staged.append((staged, copied))
+            return stacked
 
     def _chain_cfg(self, pending):
         """The one config under which a pending group runs as a chain, with
@@ -599,13 +647,15 @@ class TorchRayMapper:
     def _dispatch_chain(self, stacked, pending, cfg) -> None:
         """One chained group (ops.integrate.integrate_chain): every row of
         the stacked upload in order under ``cfg``; one stats entry."""
-        stats = integrate_chain(self.arena.layers, stacked, cfg, len(pending))
-        self.last_route = "chain_fused" if cfg.row_cap else "chain_split"
-        self._record([p[2] for p in pending], [p[2] for p in pending], stats)
+        with _PROFILE.span("worker.dispatch", count=len(pending)):
+            stats = integrate_chain(self.arena.layers, stacked, cfg, len(pending))
+            self.last_route = "chain_fused" if cfg.row_cap else "chain_split"
+            self._record([p[2] for p in pending], [p[2] for p in pending], stats)
 
     def flush(self) -> None:
         """Wait until the worker has integrated every queued batch; raise the
         first error it met since the last flush."""
+        _PROFILE.refresh()
         if self._worker is not None:
             self._queue.join()
             if self._worker_error is not None:
@@ -669,17 +719,31 @@ class TorchRayMapper:
     def _integrate_batch(self, rays, intensities, timestamps, ray_update_flags) -> int:
         self.map.touch()
         stop = ray_update_flags & RayFlag.STOP_ON_FIRST_OCCUPIED
-        if self.rayflow and not (stop and self._stop_needs_segments):
-            setup = self._rayflow_setup_host(rays, timestamps, intensities, ray_update_flags)
-            if setup is not None:
-                wire, cfg, n_rays = setup
-                return self._dispatch(torch.from_numpy(wire).to(self.device), cfg, n_rays)
-        setup = self._segmented_setup_host(rays, timestamps, intensities, ray_update_flags)
-        if setup is None:  # no segment: nothing to integrate
+        setup = segmented = None
+        with _PROFILE.span("worker.prep"):
+            if self.rayflow and not (stop and self._stop_needs_segments):
+                setup = self._rayflow_setup_host(rays, timestamps, intensities,
+                                                 ray_update_flags)
+            if setup is None:
+                segmented = self._segmented_setup_host(rays, timestamps, intensities,
+                                                       ray_update_flags)
+        if setup is not None:
+            wire, cfg, n_rays = setup
+            with _PROFILE.span("worker.upload"):
+                upload = self._to_device(wire)
+            return self._dispatch(upload, cfg, n_rays)
+        if segmented is None:  # no segment: nothing to integrate
             return np.asarray(rays).reshape(-1, 3).shape[0] // 2
-        upload, cfg, n_rays, n_segments = setup
-        upload = {k: torch.from_numpy(v).to(self.device) for k, v in upload.items()}
+        upload, cfg, n_rays, n_segments = segmented
+        with _PROFILE.span("worker.upload"):
+            upload = {k: self._to_device(v) for k, v in upload.items()}
         return self._dispatch(upload, cfg, n_rays, n_segments)
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A host array copied to the device; from pageable memory the copy
+        blocks the host until the stream reaches it (a sync)."""
+        with _PROFILE.sync():
+            return torch.from_numpy(array).to(self.device)
 
     def _dispatch(self, upload, cfg: IntegrateConfig, n_rays: int,
                   n_segments: int | None = None) -> int:
@@ -687,8 +751,9 @@ class TorchRayMapper:
         of a segmented batch's tensors) and integrate it; the arena updates
         in place and the stats stay on the device until read."""
         n_segments = n_rays if n_segments is None else n_segments
-        stats = self._integrate_device(decode(upload, cfg), cfg, n_rays, n_segments)
-        self._record([n_rays], [n_segments], stats)
+        with _PROFILE.span("worker.dispatch"):
+            stats = self._integrate_device(decode(upload, cfg), cfg, n_rays, n_segments)
+            self._record([n_rays], [n_segments], stats)
         return n_rays
 
     def _record(self, rays, segments, stats: dict) -> None:
@@ -738,9 +803,13 @@ class TorchRayMapper:
 
     def _drain_stats(self) -> list[dict]:
         """Read the pending batches' stats back and sum _STAT_NAMES into
-        ``stats``.  Returns the drained per-batch values (ints)."""
-        drained = [{k: int(stats[k]) for k in self._STAT_NAMES}
-                   for stats in self._pending_stats]
+        ``stats``.  Returns the drained per-batch values (ints).  The reads
+        count as one sync."""
+        drained = []
+        if self._pending_stats:
+            with _PROFILE.sync():
+                drained = [{k: int(stats[k]) for k in self._STAT_NAMES}
+                           for stats in self._pending_stats]
         for stats in drained:
             for k, v in stats.items():
                 self._stats[k] += v

@@ -49,6 +49,9 @@ from ohm_tpu_torch.ops import deposit_cuda, expand_cuda, segments, subvoxel
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.ddawalk import walk_rays, walk_rays_unordered
 from ohm_tpu_torch.ops.wire import decode
+from ohm_tpu_torch.utils.profile import Profile
+
+_PROFILE = Profile.instance()
 
 
 def resolve_slots(voxels, cfg: IntegrateConfig, tcand, gmeta):
@@ -255,7 +258,8 @@ def _row_lasts_max(rows, limit: int):
 def _compact_lasts(ids_s: torch.Tensor, last: torch.Tensor, sentinel: int) -> torch.Tensor:
     """Positions (int64) of the voxel-last records of a sorted id stream,
     the sentinel's left out: each touched voxel once."""
-    return torch.nonzero(last & (ids_s != sentinel)).squeeze(1)
+    with _PROFILE.sync():  # nonzero reads the count back
+        return torch.nonzero(last & (ids_s != sentinel)).squeeze(1)
 
 
 def apply_records(occupancy, records: dict, cfg: IntegrateConfig, traversal=None):

@@ -1,0 +1,292 @@
+"""The program's worker spans over a traced window, and their join with the
+device trace.
+
+The program records its spans (``ohm_tpu_torch.utils.profile``: the
+process-wide ``Profile.instance()``) on ``time.perf_counter_ns()`` while a
+torch.profiler session runs, as it does over a traced window.  The window
+(``run.drive_window``) is on ``time.perf_counter()`` seconds, the device
+trace (``devicetrace.WindowTrace``) on torch.profiler's Unix-epoch
+nanoseconds; the recorder's ``to_epoch_ns`` maps the first onto the second.
+
+That mapping holds for the host's events, but the device's timestamps drift
+against the host's clock within a traced window, by up to tens of ms on the
+card (PERF.md, §6).  So the join puts the device operations on the host's
+clock by the worker's own copies: each group's wires go up in one pinned
+copy, issued inside a ``worker.copy`` span, so the n-th pinned host-to-device
+copy of the trace is the n-th ``worker.copy`` span's.  Where the device was
+idle when the copy was issued, the copy starts as its span ends (to the tens
+of microseconds the device takes to start it), and it anchors the two
+clocks.  A copy that starts within ``QUEUED_NS`` of the end of the device's
+work before it may have waited behind that work, so its start says nothing
+of when it was issued: it anchors nothing.  Between two anchors the
+correction is interpolated, outside them held.  Where the copies and the
+spans do not pair, or no copy anchors, the device joins read nothing.
+
+``probe`` snapshots the window's spans once for every reader
+(``ctx["probes"]["worker_spans"]``); where the program has no recorder,
+or it recorded nothing in the window, the snapshot is None and the readers
+read nothing.
+"""
+
+from __future__ import annotations
+
+import bisect
+from dataclasses import dataclass, field
+
+#: The spans whose time the device-idle attribution takes, in the order in
+#: which it gives an instant that two of them cover (on two threads).
+ATTRIBUTED = ("worker.dispatch", "worker.upload", "worker.prep", "worker.wait")
+#: K1's kernel: each batch's first launch on the rayflow wire.
+K1 = "expand_keys_kernel"
+#: How far a device operation may seem to start before the host issued it
+#: (ns) before the clock check calls the two clocks apart.
+CLOCK_SLACK_NS = 20_000
+#: A copy that starts less than this (ns) after the end of the device's work
+#: before it may have queued behind that work: it anchors nothing.
+QUEUED_NS = 20_000
+
+
+def recorder():
+    """The program's process-wide span recorder, or None where the program
+    has none."""
+    try:
+        from ohm_tpu_torch.utils.profile import Profile
+    except ImportError:
+        return None
+    rec = Profile.instance()
+    if not all(callable(getattr(rec, m, None)) for m in ("spans", "counters", "to_epoch_ns")):
+        return None
+    return rec
+
+
+def union(intervals) -> list:
+    """Sorted disjoint (start, end) pairs covering ``intervals``."""
+    out = []
+    for a, b in sorted(i for i in intervals if i[1] > i[0]):
+        if out and a <= out[-1][1]:
+            if b > out[-1][1]:
+                out[-1][1] = b
+        else:
+            out.append([a, b])
+    return [tuple(i) for i in out]
+
+
+def length(intervals) -> int:
+    return sum(b - a for a, b in intervals)
+
+
+def intersect(xs, ys) -> list:
+    """The overlap of two sorted disjoint interval lists."""
+    out, i, j = [], 0, 0
+    while i < len(xs) and j < len(ys):
+        a, b = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        if a < b:
+            out.append((a, b))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def subtract(xs, ys) -> list:
+    """``xs`` less ``ys`` (both sorted and disjoint)."""
+    out, j = [], 0
+    for a, b in xs:
+        while j < len(ys) and ys[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(ys) and ys[k][0] < b:
+            if ys[k][0] > a:
+                out.append((a, ys[k][0]))
+            a = max(a, ys[k][1])
+            k += 1
+        if a < b:
+            out.append((a, b))
+    return out
+
+
+def _pinned_copies(ops) -> list:
+    """The trace's pinned host-to-device copies (the worker's uploads), by
+    start."""
+    return sorted((o for o in ops if o.kind == "gpu_memcpy" and "HtoD" in o.name
+                   and "Pinned" in o.name), key=lambda o: o.start_ns)
+
+
+def _queued(ops) -> set:
+    """``id`` of each operation that starts less than ``QUEUED_NS`` after
+    the latest end of the operations that started before it."""
+    out, busy = set(), None
+    for o in sorted(ops, key=lambda o: (o.start_ns, o.end_ns)):
+        if busy is not None and o.start_ns - busy < QUEUED_NS:
+            out.add(id(o))
+        busy = o.end_ns if busy is None else max(busy, o.end_ns)
+    return out
+
+
+@dataclass
+class WindowSpans:
+    """The spans that overlap a window [lo, hi] (``perf_counter_ns``), and
+    ``offset``: what ``to_epoch_ns`` adds to put them on the trace's clock."""
+    spans: list = field(default_factory=list)
+    lo: int = 0
+    hi: int = 0
+    offset: int = 0
+
+    def intervals(self, name: str, thread=None) -> list:
+        """The union of the spans called ``name`` (on ``thread``), cut to
+        the window."""
+        return union((max(s.start_ns, self.lo), min(s.end_ns, self.hi)) for s in self.spans
+                     if s.name == name and (thread is None or s.thread == thread))
+
+    def seconds(self, name: str, less: str | None = None) -> float:
+        """Seconds inside spans called ``name`` in the window, less those
+        inside spans called ``less`` on the same thread (their children)."""
+        total = 0
+        for thread in {s.thread for s in self.spans if s.name == name}:
+            own = self.intervals(name, thread)
+            if less is not None:
+                own = subtract(own, self.intervals(less, thread))
+            total += length(own)
+        return total / 1e9
+
+    def count(self, name: str) -> int:
+        """Spans called ``name`` that start in the window."""
+        return sum(1 for s in self.spans if s.name == name and self.lo <= s.start_ns <= self.hi)
+
+    def _starts(self, name: str) -> list:
+        """(start, count) of the spans called ``name`` that start in the
+        window, in order."""
+        return sorted((s.start_ns, s.count) for s in self.spans
+                      if s.name == name and self.lo <= s.start_ns <= self.hi)
+
+    def _paired_copies(self, ops) -> list:
+        """(pinned copy, end of the ``worker.copy`` span that issued it) in
+        order, where the copies and the spans pair; else []."""
+        copies = _pinned_copies(ops)
+        ends = sorted(s.end_ns for s in self.spans
+                      if s.name == "worker.copy" and self.lo <= s.start_ns <= self.hi)
+        if not copies or len(copies) != len(ends):
+            return []
+        return list(zip(copies, ends))
+
+    def anchors(self, ops) -> list:
+        """(a copy's trace start, its error: that start on the host's clock
+        less the end of the ``worker.copy`` span that issued it), one for
+        each paired pinned copy that did not queue behind the device's work
+        (``QUEUED_NS``); [] where the copies and the spans do not pair."""
+        queued = _queued(ops)
+        return [(o.start_ns, o.start_ns - self.offset - end)
+                for o, end in self._paired_copies(ops) if id(o) not in queued]
+
+    def on_host_clock(self, ops, anchors=None) -> list:
+        """(start, end, op) of each device operation on the host's clock
+        (``perf_counter_ns``): the trace's time less ``offset`` and less the
+        copies' error, interpolated between them."""
+        anchors = self.anchors(ops) if anchors is None else anchors
+        at = [a for a, _ in anchors]
+        out = []
+        for o in ops:
+            err = 0
+            if anchors:
+                i = bisect.bisect_right(at, o.start_ns)
+                if i == 0:
+                    err = anchors[0][1]
+                elif i == len(anchors):
+                    err = anchors[-1][1]
+                else:
+                    (a0, e0), (a1, e1) = anchors[i - 1], anchors[i]
+                    err = e0 + (e1 - e0) * (o.start_ns - a0) // max(a1 - a0, 1)
+            shift = self.offset + err
+            out.append((o.start_ns - shift, o.end_ns - shift, o))
+        return out
+
+    def idle_split(self, ops, anchors=None) -> dict:
+        """The window's device-idle seconds (the complement of the union of
+        the device operations ``ops``, on the host's clock), split by the
+        span in ``ATTRIBUTED`` that covers them, the first listed where two
+        do; "unattributed" is idle time under none, "idle" the whole."""
+        busy = union((max(a, self.lo), min(b, self.hi))
+                     for a, b, _ in self.on_host_clock(ops, anchors))
+        idle = subtract([(self.lo, self.hi)], busy)
+        out = {"idle": length(idle) / 1e9}
+        left = idle
+        for name in ATTRIBUTED:
+            inside = intersect(left, self.intervals(name))
+            out[name] = length(inside) / 1e9
+            left = subtract(left, inside)
+        out["unattributed"] = length(left) / 1e9
+        return out
+
+    def clock_margins(self, ops) -> dict:
+        """The clock check: each pinned host-to-device copy against the
+        ``worker.upload`` span that issued it, and each batch's first K1
+        launch against its ``worker.dispatch`` span, paired in order (a
+        group's upload is one copy; a span over ``count`` batches launches
+        K1 ``count`` times).  The least margins (ns, device start less span
+        start) on the trace's own clock (``raw_``) and on the host's clock
+        as the join aligns it; None where the counts do not pair.  Aligned,
+        an anchored copy starts as its ``worker.copy`` span ends, inside its
+        upload span, by construction: only the K1 margin and the copies that
+        queued test the alignment there.  The anchors' errors, as the
+        alignment takes them out, give the trace's drift."""
+        anchors = self.anchors(ops)
+        aligned = {id(o): a for a, _, o in self.on_host_clock(ops, anchors)}
+        copies = _pinned_copies(ops)
+        k1 = sorted((o for o in ops if o.kind == "kernel" and K1 in o.name),
+                    key=lambda o: o.start_ns)
+        uploads, dispatches = self._starts("worker.upload"), self._starts("worker.dispatch")
+        paired = len(self._paired_copies(ops))
+        out = {"copies": len(copies), "uploads": len(uploads), "k1": len(k1),
+               "dispatched_batches": sum(c for _, c in dispatches), "anchors": len(anchors),
+               "queued_copies": paired - len(anchors),
+               "drift_ns": ([min(e for _, e in anchors), max(e for _, e in anchors)]
+                            if anchors else None)}
+        for clock, start in (("raw_", lambda o: o.start_ns - self.offset),
+                             ("", lambda o: aligned[id(o)])):
+            out[clock + "copy_margin_ns"] = (
+                min(start(o) - u for o, (u, _) in zip(copies, uploads))
+                if copies and len(copies) == len(uploads) else None)
+            firsts, i = [], 0
+            if k1 and len(k1) == out["dispatched_batches"]:
+                for u, n in dispatches:
+                    firsts.append(start(k1[i]) - u)
+                    i += n
+            out[clock + "k1_margin_ns"] = min(firsts) if firsts else None
+        return out
+
+
+def probe(ctx) -> None:
+    """Snapshot the window's spans into ``ctx["probes"]["worker_spans"]``
+    (once for every reader)."""
+    if "worker_spans" in ctx["probes"]:
+        return
+    rec, window = recorder(), ctx["window"]
+    snap = None
+    if rec is not None:
+        lo, hi = int(window["start"] * 1e9), int(window["end"] * 1e9)
+        spans = rec.spans(lo, hi)
+        if spans:
+            snap = WindowSpans(spans=spans, lo=lo, hi=hi, offset=rec.to_epoch_ns(0))
+    ctx["probes"]["worker_spans"] = snap
+
+
+def per_batch(ctx):
+    """(the window's spans, its batch count), or None where there is
+    nothing to read."""
+    snap, batches = ctx["probes"].get("worker_spans"), len(ctx["window"]["batches"])
+    return (snap, batches) if snap is not None and batches else None
+
+
+def idle_shares(ctx):
+    """The window's device-idle split as shares of the window (%), or None
+    without device operations or spans, or where no copy anchors the
+    trace's clock to the host's (``WindowSpans.anchors``)."""
+    snap, trace = ctx["probes"].get("worker_spans"), ctx["trace"]
+    if snap is None or trace is None or not trace.ops or trace.window_s <= 0:
+        return None
+    if "idle_split" not in ctx["probes"]:
+        anchors = snap.anchors(trace.ops)
+        ctx["probes"]["idle_split"] = snap.idle_split(trace.ops, anchors) if anchors else None
+    split = ctx["probes"]["idle_split"]
+    return None if split is None else {k: 100.0 * v / trace.window_s for k, v in split.items()}

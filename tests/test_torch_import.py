@@ -239,7 +239,6 @@ import numpy as np
 from ohm_tpu_torch import TorchNdtMap, TorchRayMapper
 from ohm_tpu_torch.core.map import MapFlag, OccupancyMap
 from ohm_tpu_torch.ops import integrate, segments
-from ohm_tpu_torch.scripts import phase_timing
 rng = np.random.default_rng(0)
 batches = []
 for _ in range(6):
@@ -267,10 +266,9 @@ print(sorted(n for n in sys.modules if n.startswith(("jax.", "ohm_tpu.", "script
 
 
 def test_apply_routes_import_and_run_with_jax_blocked():
-    """The fused, NDT fused and delta routes, the worker's group and
-    ohm_tpu_torch.scripts.phase_timing import and run on the CPU with JAX
-    blocked, and load no module of ohm_tpu, nor the root bench.py or
-    scripts/."""
+    """The fused, NDT fused and delta routes and the worker's group import
+    and run on the CPU with JAX blocked, and load no module of ohm_tpu, nor
+    the root bench.py or scripts/."""
     env = _port_env()
     out = subprocess.run([sys.executable, "-c", _ROUTES_SCRIPT], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
