@@ -116,7 +116,7 @@ class TorchNdtMap(TorchRayMapper):
         that _fused_row_cap_for grants (ndt_map.py:83-88), its standard
         counts take the fused row-local deposit; row_cap and miss_k size
         after the batch (ndt_map.py:121-124)."""
-        rc = self._fused_row_cap_for(n_segments, cfg.group_cap)
+        rc = self._route(cfg, n_rays, n_segments)[0]
         if rc:
             cfg = dataclasses.replace(cfg, row_cap=rc)
         stats = integrate_ndt(self.arena.layers, b, self._ndt_config(cfg))
@@ -125,10 +125,27 @@ class TorchNdtMap(TorchRayMapper):
         self._auto_size_miss_k(stats)
         return stats
 
+    def _sizing_pending(self, n_rays: int, n_segments: int) -> bool:
+        """row_cap, or the default K before the fourth batch sizes it."""
+        return self._row_cap_unsized(n_segments) or self._miss_k_unsized()
+
+    def _miss_k_unsized(self) -> bool:
+        """Whether _auto_size_miss_k may still size the default K."""
+        return self._auto_miss_k and not self._miss_k_sized
+
+    def _route(self, cfg: IntegrateConfig, n_rays: int, n_segments: int) -> tuple:
+        """The route _integrate_device takes: (the fused deposit's row_cap,
+        0: K3; the miss phase's K, which _ndt_config reads)."""
+        return (self._fused_row_cap_for(n_segments, cfg.group_cap), self.miss_k)
+
+    def _graph_epoch(self) -> tuple:
+        """TorchRayMapper's, and the miss phase's K (escalated, it grows)."""
+        return super()._graph_epoch() + (self.miss_k,)
+
     def _auto_size_miss_k(self, stats) -> None:
         """One-time shrink of the default K from the fourth batch's flagged
         count (one read back; 2x headroom, a power of two, at least 4096)."""
-        if not self._auto_miss_k or self._miss_k_sized or self._stats["batches"] < 3:
+        if not self._miss_k_unsized() or self._stats["batches"] < 3:
             return
         with _PROFILE.sync():
             flagged = int(stats["ndt_flagged"])

@@ -37,7 +37,9 @@ is the port's own (``ohm_tpu_torch.core.map.OccupancyMap``).
 takes up to OHM_COALESCE queued batches at once, uploads their wires in one
 copy and runs a full, sized group as one chain (OHM_CHAIN);
 ``flush``, ``sync_voxels`` and ``stats`` wait for it and raise what it
-raised.
+raised.  On a card the worker replays a group's device work from a CUDA
+graph where it can (``mapping.graphs``; ``_graph_key`` says where): the
+same kernels in the same order, issued in one launch instead of hundreds.
 
 Each batch the mapper takes gets a sequence number, and the process-wide
 span recorder (``utils.profile.Profile.instance()``), on while a
@@ -46,16 +48,22 @@ spans under it: ``worker.wait`` (blocked on the empty queue),
 ``worker.group`` (one ``_integrate_group``), ``worker.prep`` (a batch's host
 half), ``worker.upload`` (on a card with its ``worker.copy``: the issue of
 the pinned copy, which ties the device trace's copies to the host's clock),
-``worker.dispatch`` (decode to the last launch of a batch or chain), and a
-``sync`` span, counted in ``host_syncs``, around every blocking device read
-or copy.
+``worker.dispatch`` (decode to the last launch of a batch or chain, or a
+group's replay, with its ``graph.replay`` span, counted in
+``graph_replays``), ``worker.capture`` (a group's capture, counted in
+``graph_captures``; a capture that raised counts in ``graph_fallbacks``),
+and a ``sync`` span, counted in ``host_syncs``, around every blocking
+device read or copy.
 
 Subclasses (mapping.ndt_map.TorchNdtMap, mapping.tsdf_map.TorchTsdfMap)
 override the hooks: the arena's layers ``_arena_layers``, the wire's
 intensity block ``_rayflow_intensity``, whether STOP_ON_FIRST_OCCUPIED
 leaves the rayflow wire ``_stop_needs_segments``, the segmented config
 ``_segmented_config``, the device step ``_integrate_device`` under
-``_dispatch``, and the stats ``_STAT_NAMES`` summed by ``_drain_stats``.
+``_dispatch``, the route its host logic picks (``_route``, which the
+graph key holds too), what it may still read back (``_sizing_pending``)
+and what every graph is made under (``_graph_epoch``), and the stats
+``_STAT_NAMES`` summed by ``_drain_stats``.
 """
 
 from __future__ import annotations
@@ -78,6 +86,7 @@ from ohm_tpu_torch.mapping.arena import CacheFull, NeedsEviction, VoxelArena
 from ohm_tpu_torch.mapping.batch import (
     build_wire, fill_corner_slots, frac_dict_of, max_steps_for, prepare_ray_batch,
     prepare_rayflow, rayflow_wire, snake_perm)
+from ohm_tpu_torch.mapping.graphs import CAPTURE, EAGER, CudaCapture, GraphCache
 from ohm_tpu_torch.ops.config import IntegrateConfig
 from ohm_tpu_torch.ops.ddawalk import walk_total_cap
 from ohm_tpu_torch.ops.integrate import (apply_decoded, delta_path_ok, expand_records,
@@ -98,6 +107,14 @@ RAYFLOW_MAX_CAPACITY = 8191
 #: The segmented wire ships int16 corner slots below this capacity (and
 #: region dims up to 32), the full int32 blocks from it on.
 COMPACT_MAX_CAPACITY = 32767
+
+
+def _int64(v, device) -> torch.Tensor:
+    """A stat (a 0-dim device tensor, or a host int) as an int64 0-dim
+    tensor on ``device``, with no host-to-device copy."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int64)
+    return torch.full((), int(v), dtype=torch.int64, device=device)
 
 
 class TorchRayMapper:
@@ -209,6 +226,9 @@ class TorchRayMapper:
         self._worker_error = None
         self._staged = []  # pinned upload buffers with the event of their copy
         self._batches_taken = 0  # sequence numbers given to batches
+        #: The worker's captured CUDA graphs (mapping.graphs), on a card only.
+        self.graphs = (GraphCache(CudaCapture(self.device)) if self.device.type == "cuda"
+                       else None)
 
     def _arena_layers(self) -> tuple[list[str], str]:
         """The arena's layers and its occupancy encoding."""
@@ -401,7 +421,7 @@ class TorchRayMapper:
         (one read back; 2x headroom, a power of two, at most scatter_pad),
         and again, grown only, for a batch with more rays than the one that
         sized it (tpu_map.py:348-370)."""
-        if not (self._auto_scatter and (self.scatter_cap == 0 or n_rays > self._cap_rays)):
+        if not self._scatter_cap_unsized(n_rays):
             return
         if self.scatter_cap == 0 and self._stats["batches"] < 3:
             return
@@ -412,6 +432,16 @@ class TorchRayMapper:
             cap *= 2
         self.scatter_cap = max(self.scatter_cap, min(cap, self.scatter_pad))
         self._cap_rays = n_rays
+
+    def _scatter_cap_unsized(self, n_rays: int) -> bool:
+        """Whether _auto_size_scatter_cap may still size the delta window
+        for a batch of ``n_rays``."""
+        return self._auto_scatter and (self.scatter_cap == 0 or n_rays > self._cap_rays)
+
+    def _row_cap_unsized(self, n_segments: int) -> bool:
+        """Whether _auto_size_row_cap may still size row_cap for a batch of
+        ``n_segments``."""
+        return self.fused and (self.row_cap == 0 or n_segments > 2 * self._row_cap_rays)
 
     def _fused_row_cap_for(self, n_segments: int, group_cap: int) -> int:
         """The fused apply's row_cap where a batch may take it, else 0
@@ -431,7 +461,7 @@ class TorchRayMapper:
         from the fourth batch, 2x headroom, a power of two (at least 256),
         grown only, and again for a batch with over twice the rays that
         sized it; it reads the stat back on those batches only."""
-        if not (self.fused and (self.row_cap == 0 or n_rays > 2 * self._row_cap_rays)):
+        if not self._row_cap_unsized(n_rays):
             return
         if self.row_cap == 0 and self._stats["batches"] < 3:
             return
@@ -537,15 +567,7 @@ class TorchRayMapper:
                 return
             group = list(pending)
             pending.clear()
-            _PROFILE.set_batch(group[0][4])
-            stacked = self._upload([p[0] for p in group])
-            cfg = self._chain_cfg(group) if len(group) > 1 else None
-            if cfg is not None:
-                self._dispatch_chain(stacked, group, cfg)
-            else:
-                for row, p in zip(stacked, group):
-                    _PROFILE.set_batch(p[4])
-                    self._dispatch(row, p[1], p[2])
+            self._dispatch_group(group)
 
         def add(rays, intensities, timestamps, fl, batch):
             def prep(allow_evict):
@@ -597,20 +619,111 @@ class TorchRayMapper:
         if error is not None:
             raise error
 
-    def _upload(self, wires) -> torch.Tensor:
-        """The wires stacked, u8[k, L], in one host-to-device copy.  On a card
-        the stack is written into a pinned buffer and copied without
-        blocking the host (a pageable copy synchronizes the stream); the
-        buffer is kept, with an event recorded after its copy, until that
-        event has passed."""
+    def _dispatch_group(self, group) -> None:
+        """Upload a pending group's wires in one copy and integrate them:
+        by replaying the group's captured graph where _graph_key gives a
+        key the cache has seen before (capturing it at the second
+        sighting), else as one chain (_dispatch_chain) or row by row."""
+        _PROFILE.set_batch(group[0][4])
+        wires = [p[0] for p in group]
+        cfg = self._chain_cfg(group) if len(group) > 1 else None
+        key = self._graph_key(group, cfg)
+        step, entry = (self.graphs.step(key, self._graph_epoch()) if key is not None
+                       else (EAGER, None))
+        if step is EAGER:
+            stacked = self._upload(wires)
+        elif step is CAPTURE:
+            stacked = self._upload(wires, into=torch.empty(
+                (len(group), wires[0].shape[0]), dtype=torch.uint8, device=self.device))
+            entry = self.graphs.capture(key, stacked,
+                                        lambda: self._group_stats(stacked, group, cfg),
+                                        count=len(group))
+            if entry is not None:
+                entry.route = self.last_route
+        else:
+            self._upload(wires, into=entry.input)
+        n_rays = [p[2] for p in group]
+        if entry is not None:
+            with _PROFILE.span("worker.dispatch", count=len(group)):
+                stats = self.graphs.replay(entry, count=len(group))
+                self.last_route = entry.route
+                self._record(n_rays, n_rays, stats)
+        elif cfg is not None:
+            self._dispatch_chain(stacked, group, cfg)
+        else:
+            for row, p in zip(stacked, group):
+                _PROFILE.set_batch(p[4])
+                self._dispatch(row, p[1], p[2])
+
+    def _graph_key(self, group, cfg):
+        """The key of a pending group's captured graph, or None where the
+        group runs eagerly: off a card, under ``validate`` (it reads each
+        batch's stats back), under OHM_MONOLITH, or where a batch may still
+        read an auto-sized window back (_sizing_pending).  The key holds
+        what the captured launches depend on: the stacked upload's shape
+        (the chain length and the wire's byte length), the chain's resolved
+        config or each row's config and route (_route), and the arena
+        layers' addresses."""
+        if self.graphs is None or self.validate or self.monolith:
+            return None
+        if any(self._sizing_pending(p[2], p[2]) for p in group):
+            return None
+        if cfg is not None:
+            work = ("chain", cfg)
+        else:
+            work = ("rows",) + tuple((p[1], self._route(p[1], p[2], p[2])) for p in group)
+        return (len(group), group[0][0].shape[0], work,
+                tuple(t.data_ptr() for t in self.arena.layers.values()))
+
+    def _sizing_pending(self, n_rays: int, n_segments: int) -> bool:
+        """Whether the device step may still size a window from a batch
+        (a read back, which a graph cannot hold)."""
+        return self._row_cap_unsized(n_segments) or self._scatter_cap_unsized(n_rays)
+
+    def _route(self, cfg: IntegrateConfig, n_rays: int, n_segments: int) -> tuple:
+        """The route _integrate_device takes for a batch outside the
+        monolith: (the delta path: ``delta_path`` set, delta_path_ok(cfg)
+        and no more rays than the batch that sized the window; the fused
+        apply's row_cap, 0: the split apply)."""
+        delta = (self.delta_path and delta_path_ok(cfg)
+                 and not (self._auto_scatter and n_rays > self._cap_rays))
+        return (delta, self._fused_row_cap_for(n_segments, cfg.group_cap))
+
+    def _graph_epoch(self) -> tuple:
+        """What every captured graph is made under: the sized windows, which
+        only grow, and the arena layers' addresses.  A new epoch (an
+        escalation, a reallocated arena) drops every graph."""
+        return (self.scatter_cap, self.row_cap,
+                tuple(t.data_ptr() for t in self.arena.layers.values()))
+
+    def _group_stats(self, stacked, group, cfg) -> torch.Tensor:
+        """A group's device work, as a graph captures it: the chain, or each
+        row's _integrate_device; its stats entries as one int64 tensor, a
+        row an entry, the columns _STAT_NAMES."""
+        if cfg is not None:
+            entries = [self._chain_device(stacked, len(group), cfg)]
+        else:
+            entries = [self._integrate_device(decode(row, p[1]), p[1], p[2], p[2])
+                       for row, p in zip(stacked, group)]
+        return torch.stack([_int64(s[k], self.device) for s in entries
+                            for k in self._STAT_NAMES]).view(len(entries), -1)
+
+    def _upload(self, wires, into: torch.Tensor | None = None) -> torch.Tensor:
+        """The wires stacked, u8[k, L], in one host-to-device copy, into a
+        new tensor or into ``into``.  On a card the stack is written into a
+        pinned buffer and copied without blocking the host (a pageable copy
+        synchronizes the stream); the buffer is kept, with an event
+        recorded after its copy, until that event has passed."""
         with _PROFILE.span("worker.upload", count=len(wires)):
             if self.device.type != "cuda":
-                return torch.from_numpy(np.stack(wires)).to(self.device)
+                host = torch.from_numpy(np.stack(wires))
+                return host.to(self.device) if into is None else into.copy_(host)
             staged = torch.empty((len(wires), wires[0].shape[0]), dtype=torch.uint8,
                                  pin_memory=True)
             np.stack(wires, out=staged.numpy())
             with _PROFILE.span("worker.copy"):
-                stacked = staged.to(self.device, non_blocking=True)
+                stacked = (staged.to(self.device, non_blocking=True) if into is None
+                           else into.copy_(staged, non_blocking=True))
             copied = torch.cuda.Event()
             copied.record()
             self._staged = [(buf, ev) for buf, ev in self._staged if not ev.query()]
@@ -645,12 +758,17 @@ class TorchRayMapper:
         return cfg0
 
     def _dispatch_chain(self, stacked, pending, cfg) -> None:
-        """One chained group (ops.integrate.integrate_chain): every row of
-        the stacked upload in order under ``cfg``; one stats entry."""
+        """One chained group: every row of the stacked upload in order under
+        ``cfg``; one stats entry."""
         with _PROFILE.span("worker.dispatch", count=len(pending)):
-            stats = integrate_chain(self.arena.layers, stacked, cfg, len(pending))
-            self.last_route = "chain_fused" if cfg.row_cap else "chain_split"
+            stats = self._chain_device(stacked, len(pending), cfg)
             self._record([p[2] for p in pending], [p[2] for p in pending], stats)
+
+    def _chain_device(self, stacked, k: int, cfg) -> dict:
+        """The chain's device work (ops.integrate.integrate_chain); its
+        summed stats."""
+        self.last_route = "chain_fused" if cfg.row_cap else "chain_split"
+        return integrate_chain(self.arena.layers, stacked, cfg, k)
 
     def flush(self) -> None:
         """Wait until the worker has integrated every queued batch; raise the
@@ -788,13 +906,12 @@ class TorchRayMapper:
         if self.monolith or cfg.ray_flags & RayFlag.STOP_ON_FIRST_OCCUPIED:
             self.last_route = "monolith"
             return integrate_occupancy(layers, b, cfg)
-        if (self.delta_path and delta_path_ok(cfg)
-                and not (self._auto_scatter and n_rays > self._cap_rays)):
+        if self._route(cfg, n_rays, n_segments)[0]:
             self.last_route = "delta"
             return integrate_delta(layers, b, cfg, expand=expand_records)
         records, stats = expand_records(b, cfg)
         self._auto_size_row_cap(stats, n_segments)
-        rc = self._fused_row_cap_for(n_segments, cfg.group_cap)
+        rc = self._route(cfg, n_rays, n_segments)[1]  # row_cap as just sized
         self.last_route = "fused" if rc else "split"
         stats.update(apply_decoded(layers, records, b,
                                    dataclasses.replace(cfg, row_cap=rc) if rc else cfg))
@@ -802,14 +919,18 @@ class TorchRayMapper:
         return stats
 
     def _drain_stats(self) -> list[dict]:
-        """Read the pending batches' stats back and sum _STAT_NAMES into
-        ``stats``.  Returns the drained per-batch values (ints).  The reads
-        count as one sync."""
+        """Read the pending stats entries back (a dict of device values, or
+        a replayed group's int64 rows, _group_stats) and sum _STAT_NAMES
+        into ``stats``.  Returns the drained values (ints), an entry each.
+        The reads count as one sync."""
         drained = []
         if self._pending_stats:
             with _PROFILE.sync():
-                drained = [{k: int(stats[k]) for k in self._STAT_NAMES}
-                           for stats in self._pending_stats]
+                for stats in self._pending_stats:
+                    if isinstance(stats, torch.Tensor):
+                        drained += [dict(zip(self._STAT_NAMES, row)) for row in stats.tolist()]
+                    else:
+                        drained.append({k: int(stats[k]) for k in self._STAT_NAMES})
         for stats in drained:
             for k, v in stats.items():
                 self._stats[k] += v

@@ -69,6 +69,14 @@ class TorchTsdfMap(TorchRayMapper):
             per_visit=bool(o.per_visit),
         )
 
+    def _sizing_pending(self, n_rays: int, n_segments: int) -> bool:
+        """The ``per_visit=False`` window before it is sized."""
+        return self._scatter_cap_unsized(n_rays)
+
+    def _route(self, cfg: IntegrateConfig, n_rays: int, n_segments: int) -> tuple:
+        """One route: the config holds all the device step reads."""
+        return ()
+
     def _integrate_device(self, b: dict, cfg: IntegrateConfig, n_rays: int,
                           n_segments: int) -> dict:
         self.last_route = "tsdf"

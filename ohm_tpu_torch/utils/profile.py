@@ -17,11 +17,14 @@ is active on the thread that hands the mapper its batches (the mapper
 samples that at each batch it takes, through ``refresh``), or from
 ``record(True)`` on; otherwise a span boundary costs one flag test.
 ``to_epoch_ns`` maps a ``perf_counter_ns`` reading onto the Unix-epoch
-nanoseconds that torch.profiler stamps its events with.
+nanoseconds that torch.profiler stamps its events with.  Under
+``forbid_syncs`` (a CUDA graph capture, which cannot wait on the device) a
+``sync`` scope raises ``SyncForbidden`` on the calling thread instead.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -56,6 +59,10 @@ def clock_anchor(samples: int = 5) -> int:
         if best is None or b - a < best[0]:
             best = (b - a, wall - (a + b) // 2)
     return best[1]
+
+
+class SyncForbidden(RuntimeError):
+    """A blocking device read was asked for under ``Profile.forbid_syncs``."""
 
 
 class _Off:
@@ -102,7 +109,7 @@ class _Open:
         p = self._profile
         p._tls.stack.pop()
         if self._counter is not None:
-            p._add(self._counter, 1)
+            p._add(self._counter, self._count)
         if len(p._spans) < p.span_limit:
             p._spans.append(Span(self._name, threading.get_ident(), self._start, end,
                                  self._parent, self._batch, self._count, self._id))
@@ -160,19 +167,33 @@ class Profile:
             self.enabled = on
         return self.enabled
 
-    def span(self, name: str, batch: int | None = None, count: int = 1):
+    def span(self, name: str, batch: int | None = None, count: int = 1,
+             counter: str | None = None):
         """Context manager recording one span; ``batch`` None takes the
-        thread's current batch (``set_batch``)."""
+        thread's current batch (``set_batch``); ``counter`` adds ``count``
+        to that counter as the span ends."""
         if not self.enabled:
             return _OFF
-        return _Open(self, name, batch, count, None)
+        return _Open(self, name, batch, count, counter)
 
     def sync(self):
         """Context manager around one blocking device read or copy: a span
-        named "sync", counted in ``host_syncs``."""
+        named "sync", counted in ``host_syncs``.  Under ``forbid_syncs`` it
+        raises SyncForbidden before the read."""
+        if self._tls.__dict__.get("forbid_syncs"):
+            raise SyncForbidden("a blocking device read inside a CUDA graph capture")
         if not self.enabled:
             return _OFF
         return _Open(self, "sync", None, 1, "host_syncs")
+
+    @contextlib.contextmanager
+    def forbid_syncs(self):
+        """While open, ``sync`` raises SyncForbidden on the calling thread."""
+        self._tls.forbid_syncs = True
+        try:
+            yield
+        finally:
+            self._tls.forbid_syncs = False
 
     def set_batch(self, batch: int | None) -> None:
         """The batch the calling thread's next spans belong to."""

@@ -27,7 +27,10 @@ launched and K1 not; and ShardedRayFlowMapper on four shards of the card,
 bit for bit TorchRayMapper's occupancy, with K1 and K2 on every shard.  The
 loops the port's benches time through the asynchronous worker
 (timed_integration, integrate_frame) leave the map the same synchronous
-calls leave, bit for bit, for occupancy, TSDF and NDT-TM.
+calls leave, bit for bit, for occupancy, TSDF and NDT-TM.  The worker's
+groups replayed from captured CUDA graphs (mapping.graphs) leave the eager
+worker's map, drained stats and kernel launch counts bit for bit, for every
+mapper kind, through a row_cap escalation that forces a recapture.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -48,6 +51,7 @@ from ohm_tpu_torch.ops import probes_cuda
 from ohm_tpu_torch.ops.deposit_cuda import (
     deposit_and_sweep, deposit_and_sweep_ndt, deposit_and_sweep_ndt_reference,
     deposit_and_sweep_reference, tsdf_set_deposit, tsdf_set_deposit_reference)
+from ohm_tpu_torch.mapping import graphs as worker_graphs
 from ohm_tpu_torch.mapping.batch import frac_dict_of, prepare_rayflow, rayflow_wire
 from ohm_tpu_torch.ops.expand_cuda import _prelude, expand_keys, expand_keys_reference
 from ohm_tpu_torch.ops.gather_cuda import (
@@ -972,3 +976,103 @@ def test_hardware_fused_differential_on_card(cuda):
     rng = np.random.default_rng(bench.SEED)
     bench.box_scene_rays(1024, rng)
     assert bench.hardware_fused_differential(rng, "cuda")["bit_identical"]
+
+
+#: The mapper kinds on the worker's group path: (class, map flags, arguments,
+#: group size, whether the graph holds its device step).  The occupancy
+#: mapper's side layers compact their voxels with a count read back
+#: (ops.integrate._compact_lasts): their captures stop there and the groups
+#: stay eager.  NDT's side layers read nothing back.
+GRAPH_KINDS = {
+    "occupancy_chain": (TorchRayMapper, MapFlag.NONE, {}, 4, True),
+    "occupancy_single": (TorchRayMapper, MapFlag.NONE, {}, 1, True),
+    "occupancy_delta": (TorchRayMapper, MapFlag.NONE, {"delta_path": True}, 4, True),
+    "ndt_om": (TorchNdtMap, MapFlag.NONE, {"miss_k": "exact"}, 4, True),
+    "ndt_tm": (TorchNdtMap, MapFlag.NONE, {"params": NdtParams(ndt_tm=True), "miss_k": "exact"},
+               4, True),
+    "tsdf": (TorchTsdfMap, MapFlag.NONE, {}, 4, True),
+    "occupancy_layers": (TorchRayMapper, MapFlag.VOXEL_MEAN | MapFlag.TRAVERSAL
+                         | MapFlag.TOUCH_TIME | MapFlag.INCIDENT_NORMAL, {}, 4, False),
+    "ndt_layers": (TorchNdtMap, MapFlag.TRAVERSAL | MapFlag.TOUCH_TIME
+                   | MapFlag.INCIDENT_NORMAL, {"miss_k": "exact"}, 4, True),
+}
+
+
+def _graph_run(device, kind, batches, graphs, escalate_at=None):
+    """``batches`` through a mapper of ``kind``: four synchronous calls
+    (the windows sized), then the worker's groups, on this thread so that
+    the groups are the same on every run, with the graphs (``graphs``) or
+    without; at group ``escalate_at`` row_cap doubles, as an escalation
+    doubles it.  Returns (host map bytes, drained stats, stats, routes,
+    mapper, the worker's kernel launches by wrapper)."""
+    cls, flags, kw, size, _ = GRAPH_KINDS[kind]
+    rng = np.random.default_rng(31)
+    m = OccupancyMap(resolution=0.1, flags=flags)
+    mapper = cls(m, capacity=512, device=device, rayflow=True, **kw)
+    if not graphs:
+        mapper.graphs = None
+    mapper.prime_caps(batches)
+    for b in batches[:4]:
+        mapper.integrate_rays(b, timestamps=rng.uniform(0, 10, len(b) // 2),
+                              intensities=rng.uniform(10, 20, len(b) // 2))
+    drained, routes = mapper._drain_stats(), []
+    for fn in worker_graphs._COUNTED:
+        fn.launches = 0
+    for g, i in enumerate(range(4, len(batches), size)):
+        if g == escalate_at:
+            mapper.row_cap *= 2
+        mapper._integrate_group([(b, rng.uniform(10, 20, len(b) // 2),
+                                  rng.uniform(0, 10, len(b) // 2), 0)
+                                 for b in batches[i:i + size]])
+        drained += mapper._drain_stats()
+        routes.append(mapper.last_route)
+    mapper.sync_voxels()
+    launches = {fn.__name__: fn.launches for fn in worker_graphs._COUNTED}
+    return map_bytes(m), drained, mapper.stats, routes, mapper, launches
+
+
+def _same_run(a, b):
+    assert a[0].keys() == b[0].keys() and len(a[0]) > 0
+    assert all(a[0][k] == b[0][k] for k in a[0]), [k for k in a[0] if a[0][k] != b[0][k]][:4]
+    assert a[1] == b[1] and a[2] == b[2] and a[3] == b[3]
+    assert a[5] == b[5] and sum(a[5].values()) > 0, (a[5], b[5])
+
+
+@pytest.mark.parametrize("kind", list(GRAPH_KINDS))
+def test_graph_replay_matches_eager_on_card(cuda, kind):
+    """32 box batches of 4096 rays through the worker's groups, replayed
+    from captured graphs: the eager worker's map, drained stats (an entry
+    each, the same values), stats, routes and kernel launch counts, bit for
+    bit.  The kinds whose device step reads the host fall back once and
+    stay eager."""
+    rng = np.random.default_rng(29)
+    batches = [_box_rays(4096, rng) for _ in range(32)]
+    eager = _graph_run(cuda, kind, batches, graphs=False)
+    graphed = _graph_run(cuda, kind, batches, graphs=True)
+    _same_run(graphed, eager)
+    cache, size, holds = graphed[4].graphs, GRAPH_KINDS[kind][3], GRAPH_KINDS[kind][4]
+    if holds:
+        # The first group of a key runs eagerly, the second captures.
+        assert (cache.captures, cache.fallbacks) == (1, 0), kind
+        assert cache.replays == 28 - size, kind
+    else:
+        assert (cache.captures, cache.replays, cache.fallbacks) == (0, 0, 1), kind
+
+
+def test_graph_recaptures_after_a_row_cap_escalation(cuda):
+    """Chains under the fused apply (OHM_FUSED=2), row_cap doubled after the
+    third group: a new key, captured again at its second sighting; the
+    eager worker's map and stats bit for bit."""
+    rng = np.random.default_rng(37)
+    batches = [_box_rays(4096, rng) for _ in range(32)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OHM_FUSED", "2")
+        eager = _graph_run(cuda, "occupancy_chain", batches, graphs=False, escalate_at=3)
+        graphed = _graph_run(cuda, "occupancy_chain", batches, graphs=True, escalate_at=3)
+    _same_run(graphed, eager)
+    assert set(graphed[3]) == {"chain_fused"}
+    cache = graphed[4].graphs
+    # Groups 0-2: seen, captured, replayed; 3-6: seen, captured, replayed
+    # twice.  The new epoch dropped the first key's graph.
+    assert (cache.captures, cache.replays, cache.fallbacks) == (2, 20, 0)
+    assert len(cache) == 1
