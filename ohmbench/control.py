@@ -39,20 +39,21 @@ def control_readings(workload: str, seed: int, window_batches: int, device="cuda
     """[{control, <number>: share, limits, ...}] of each control on one seed."""
     import torch
 
-    from ohmbench import generator, run
+    from ohmbench import find, generator, run
     from ohmbench.reference import compare
 
     _, config, mix, limits = run.load_cell(workload, overrides)
+    mode = find("modes", config["mode"])
     device = torch.device(device)
     pool = run.Pool(generator.make_pool(mix, seed, device), mix["batching"]["cycle"])
     seq = pool.plan(mix["warmup"], window_batches)
     batch = lambda i: torch.from_numpy(pool.batches[i]).to(device)  # noqa: E731
-    ref = run.make_reference(config)
+    ref = mode.make_reference(config)
     ref.walk_batches(batch, seq)
     ref_map = ref.replay(seq)
     rows = []
     for name, (geometry, values) in CONTROLS.items():
-        ctl = run.make_reference(config, getattr(torch, geometry), getattr(torch, values))
+        ctl = mode.make_reference(config, getattr(torch, geometry), getattr(torch, values))
         ctl.walk_batches(batch, seq)
         result = compare.compare(ctl.replay(seq), ref_map, config["resolution"])
         rows.append({"workload": workload, "seed": seed, "control": name, "batches": len(seq),

@@ -7,12 +7,14 @@ A cell (``BENCHMARK.json``'s ``workloads``) names a configuration
 settings) and a traffic mix (``ohmbench/traffic/<traffic>.json``, read by
 ``ohmbench/generator.py``).  A run makes the mix's pool of ray batches from
 ``--seed`` on the card, builds the mapper, warms it up, then drives it for
-``--seconds`` as one client: ``integrate_rays_async`` batch after batch,
-then ``flush`` and a synchronise.  After the window it reads the map back
-(``sync_voxels``), frees the program's state and works the map out again
-with the plain reference (``ohmbench/reference``) from the same rays;
-``correct`` is the comparison against the limits in
-``ohmbench/limits/<cell>.json``.
+``--seconds`` with the mix's client loop (``ohmbench/loops/<kind>.py``).
+After the window it reads the map back (``sync_voxels``), frees the
+program's state and works the map out again with the plain reference of
+the configuration's mode (``ohmbench/modes/<mode>.py`` over
+``ohmbench/reference``) from the same rays; ``correct`` is the comparison
+against the limits in ``ohmbench/limits/<cell>.json``.  Every such file is
+found by the name a cell, a configuration or a mix gives, so a new cell,
+mode, traffic part or loop is a new file.
 
 With ``--trace 0`` the last line of standard output holds the cell's
 end-to-end metrics; with ``--trace 1`` its per-layer metrics, each read by
@@ -141,46 +143,6 @@ def build_mapper(config: dict, device):
     return m, mapper
 
 
-def make_reference(config: dict, geometry=None, values=None):
-    """The plain reference of the configuration's ``mode`` (occupancy or
-    NDT-OM), in ``geometry`` and ``values`` (default: what the
-    configuration's ``precision`` states)."""
-    import torch
-
-    from ohmbench.reference.occupancy import OccupancyParams, OccupancyReference
-    from ohmbench.reference.walk import Grid
-
-    geometry = geometry or getattr(torch, config["precision"]["geometry"])
-    values = values or getattr(torch, config["precision"]["voxel_values"])
-    grid = Grid(config["resolution"], config["region_dim"])
-    params = OccupancyParams.from_probabilities(config["hit_probability"],
-                                                config["miss_probability"])
-    if config["mode"] == "occupancy":
-        return OccupancyReference(grid, params, geometry, values)
-    if config["mode"] == "ndt":
-        from ohmbench.reference.ndt import NdtParams, NdtReference
-
-        ndt = NdtParams.from_config(config["ndt"], config["miss_probability"])
-        return NdtReference(grid, params, ndt, geometry, values)
-    raise ValueError(f"no reference for mode {config['mode']!r}")
-
-
-def program_map(m, config: dict, device) -> dict:
-    """The program's map, read back into the host map, in the reference's
-    form (``compare``): the occupancy of every observed voxel and, for
-    NDT-OM, every sampled voxel's count, mean and covariance."""
-    from ohmbench.reference import compare
-
-    layers = {"occupancy": (m.layer_index("occupancy"), ("occupancy",))}
-    if config["mode"] == "ndt":
-        layers["mean"] = (m.layer_index("mean"), ("coord", "count"))
-        layers["covariance"] = (m.layer_index("covariance"), compare.COV_KEYS)
-    chunks = {key: {f"{name}.{member}": c.layers[index][member]
-                    for name, (index, members) in layers.items() for member in members}
-              for key, c in m.chunks.items()}
-    return compare.read_map(chunks, config["region_dim"], config["resolution"], device)
-
-
 class Pool:
     """The traffic's batches and the order the run takes them in."""
 
@@ -223,47 +185,19 @@ def rays_of(batch) -> int:
     return batch.shape[0] // 2
 
 
-def drive_window(mapper, pool: Pool, seconds: float, sync) -> dict:
-    """The closed loop: one client submits batch after batch until
-    ``seconds`` have passed (or a pool that does not cycle is spent), then
-    waits for the map (flush + synchronise)."""
-    from ohmbench.hostmeter import HostMeter
-
-    first = len(pool.sequence)
-    rays, spent = 0, False
-    host = HostMeter()
-    t0 = host.t0
-    now = t0
-    while now - t0 < seconds:
-        i = pool.take()
-        if i is None:
-            spent = True
-            break
-        mapper.integrate_rays_async(pool.batches[i])
-        rays += rays_of(pool.batches[i])
-        now = time.perf_counter()
-        host.tick(now)
-    mapper.flush()
-    sync()
-    t1 = time.perf_counter()
-    return {"start": t0, "end": t1, "seconds": t1 - t0, "rays": rays,
-            "batches": pool.sequence[first:], "pool_spent": spent,
-            "host_by_second": host.seconds()}
-
-
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
              overrides: dict | None = None) -> dict:
     """One run of cell ``workload``; returns the result line's object with
     ``checks`` last.  ``overrides`` as ``load_cell`` takes them."""
     import torch
 
-    from ohmbench import generator
+    from ohmbench import find, generator
     from ohmbench.hostmeter import speed_probe
     from ohmbench.reference import compare
 
     _, config, mix, limits = load_cell(workload, overrides)
-    if mix["loop"]["kind"] != "closed":
-        raise ValueError(f"unknown loop {mix['loop']['kind']!r}")
+    mode = find("modes", config["mode"])
+    loop = find("loops", mix["loop"]["kind"])
     device = torch.device(device)
     on_card = device.type == "cuda"
 
@@ -300,11 +234,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
         from ohmbench.devicetrace import Profiled
 
         with Profiled(on_card) as prof:
-            window = drive_window(mapper, pool, length, sync)
+            window = loop.drive_window(mapper, pool, length, sync, mix["loop"])
         prof.trace.window_s = window["seconds"]
         window_trace = prof.trace
     else:
-        window = drive_window(mapper, pool, length, sync)
+        window = loop.drive_window(mapper, pool, length, sync, mix["loop"])
         window_trace = None
     setup_s = window["start"] - _T0
     gc.unfreeze()
@@ -336,12 +270,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    prog = program_map(m, config, device)
+    prog = mode.program_map(m, config, device)
     del m
 
     # The reference, from the same rays.
     t_ref = time.perf_counter()
-    ref = make_reference(config)
+    ref = mode.make_reference(config)
     ref.walk_batches(lambda i: torch.from_numpy(pool.batches[i]).to(device), pool.sequence)
     ref_map = ref.replay(pool.sequence)
     result = compare.compare(prog, ref_map, config["resolution"])
@@ -352,10 +286,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     submitted = sum(rays_of(pool.batches[i]) for i in pool.sequence)
     numbers = {name: compare.share(part) for name, part in result.items()}
     numbers["rays_lost"] = max(0, submitted - stats_final["rays"])
-    if "ndt_overflow" in stats_final:
-        # Gaussian misses the program turned into standard ones (its miss_k
-        # bound): the reference applies the NDT math to every one.
-        numbers["ndt_overflow"] = stats_final["ndt_overflow"]
+    numbers.update(mode.counted(stats_final))
+    if set(numbers) != set(mode.NUMBERS):
+        raise ValueError(f"mode {config['mode']!r} compares {sorted(mode.NUMBERS)}, "
+                         f"the run gave {sorted(numbers)}")
     checks = {name: {"value": value, "limit": limits[name]} for name, value in numbers.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 

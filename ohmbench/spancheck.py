@@ -14,7 +14,9 @@ cell's own set-up and warm-up (``run.py``'s), in one process:
              worker's copies, with the copies the alignment anchors on; a
              negative margin beyond the slack means the two clocks disagree
              there.  Aligned, an anchored copy's margin holds by
-             construction: only the K1 margin tests the alignment)
+             construction: only the K1 margin tests the alignment; on
+             the synchronous path, each dispatch's first device operation
+             after its waited-for pageable copy, against its span)
   syncs      a window with recording turned on through the recorder's API
              and ``torch.cuda.set_sync_debug_mode("warn")``: the
              synchronizing calls PyTorch reports on the worker's thread,
@@ -46,9 +48,16 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from ohmbench import run, spans  # noqa: E402
+from ohmbench.loops import closed  # noqa: E402
 
 #: The sync-debug window (s): ~100 batches or more in either cell.
 SYNC_SECONDS = 2.0
+
+
+def drive(mapper, pool, seconds: float, sync) -> dict:
+    """A window of the closed loop, one client: the worker's spans as the
+    cells' runs make them."""
+    return closed.drive_window(mapper, pool, seconds, sync, {"kind": "closed", "clients": 1})
 
 
 def prepare(workload: str, seed: int, device, overrides=None):
@@ -84,7 +93,7 @@ def traced(mapper, pool, seconds: float, sync) -> dict:
     from ohmbench.devicetrace import Profiled
 
     with Profiled(True) as prof:
-        window = run.drive_window(mapper, pool, seconds, sync)
+        window = drive(mapper, pool, seconds, sync)
     mapper.flush()  # the recorder follows the profiler again: off
     trace = prof.trace
     trace.window_s = window["seconds"]
@@ -163,7 +172,7 @@ def sync_count(mapper, pool, seconds: float, sync) -> dict:
     try:
         before = rec.counters().get("host_syncs", 0)
         with SyncWarnings() as seen:
-            window = run.drive_window(mapper, pool, seconds, sync)
+            window = drive(mapper, pool, seconds, sync)
         worker = {"batches": len(window["batches"]),
                   "host_syncs": rec.counters().get("host_syncs", 0) - before,
                   "reported_by_thread": seen.by_thread, "reported_sites": seen.sites}
@@ -190,7 +199,7 @@ def cost(mapper, pool, seconds: float, sync) -> dict:
     for state in ("off", "on", "on", "off", "off", "on"):
         rec.record(state == "on")
         gc.collect()
-        window = run.drive_window(mapper, pool, seconds, sync)
+        window = drive(mapper, pool, seconds, sync)
         rates[state].append(window["rays"] / window["seconds"])
         rec.record(False)
         rec.reset()

@@ -19,8 +19,23 @@ of microseconds the device takes to start it), and it anchors the two
 clocks.  A copy that starts within ``QUEUED_NS`` of the end of the device's
 work before it may have waited behind that work, so its start says nothing
 of when it was issued: it anchors nothing.  Between two anchors the
-correction is interpolated, outside them held.  Where the copies and the
-spans do not pair, or no copy anchors, the device joins read nothing.
+correction is interpolated, outside them held.
+
+A batch that the worker integrates synchronously (the segmented wire) goes
+up in a pageable copy instead, inside a ``sync`` span within its
+``worker.upload``: the host waits there until the device has finished the
+copy, so the copy ends as its span ends (to the microseconds the host takes
+to wake), and each such copy anchors the clocks by its end, whatever it
+waited behind.  The dispatch that follows makes pageable copies of its
+own, of a few bytes; so the copies taken are those that last at least
+``WAITED_SHARE`` of the median such wait, and the n-th of them is the n-th
+such span's.  A trace may drop one (seen in a process's second traced
+window: 1-2 of ~90-160); then the two are paired by the gaps between
+their ends instead, which agree on the two clocks, a dropped copy shifting
+a gap by a whole batch (``pair_by_gaps``).  An anchor that reads far off
+its neighbours' is left out (``_waited_anchors``).  Where neither kind of
+copy pairs with its spans, or no copy anchors, the device joins read
+nothing.
 
 ``probe`` snapshots the window's spans once for every reader
 (``ctx["probes"]["worker_spans"]``); where the program has no recorder,
@@ -31,6 +46,7 @@ read nothing.
 from __future__ import annotations
 
 import bisect
+import statistics
 from dataclasses import dataclass, field
 
 #: The spans whose time the device-idle attribution takes, in the order in
@@ -44,6 +60,19 @@ CLOCK_SLACK_NS = 20_000
 #: A copy that starts less than this (ns) after the end of the device's work
 #: before it may have queued behind that work: it anchors nothing.
 QUEUED_NS = 20_000
+#: A pageable copy that an upload's ``sync`` span waited for lasts at least
+#: this share of the median such wait (the host's staging and the copy
+#: overlap); the few-byte copies a dispatch makes last a hundredth of it.
+WAITED_SHARE = 0.1
+#: Two waits' ends lie as far apart on the host's clock as their copies'
+#: ends on the trace's, to this much (ns): the host's wake-up after each
+#: copy and the trace's drift between them.  A batch takes 15 ms or more.
+GAP_SLACK_NS = 500_000
+#: A chain of such pairs starts within this (ns) of the error where the
+#: chain before it ended, or of none: a batch's gap (15 ms or more) is
+#: thrice that, so batches that come evenly spaced cannot start it a
+#: batch off.
+START_SLACK_NS = 5_000_000
 
 
 def recorder():
@@ -113,6 +142,13 @@ def _pinned_copies(ops) -> list:
                    and "Pinned" in o.name), key=lambda o: o.start_ns)
 
 
+def _pageable_copies(ops) -> list:
+    """The trace's pageable host-to-device copies (the synchronous path's
+    uploads), by end."""
+    return sorted((o for o in ops if o.kind == "gpu_memcpy" and "HtoD" in o.name
+                   and "Pageable" in o.name), key=lambda o: o.end_ns)
+
+
 def _queued(ops) -> set:
     """``id`` of each operation that starts less than ``QUEUED_NS`` after
     the latest end of the operations that started before it."""
@@ -122,6 +158,46 @@ def _queued(ops) -> set:
             out.add(id(o))
         busy = o.end_ns if busy is None else max(busy, o.end_ns)
     return out
+
+
+def pair_by_gaps(host, trace, run: int = 3) -> list:
+    """(i, j): ``host[i]`` paired with ``trace[j]`` (two sorted lists of
+    times, the second on the trace's clock less the host's offset), where
+    the gap from a neighbouring pair agrees on both clocks to
+    ``GAP_SLACK_NS``.  A chain starts where ``run`` gaps in a row agree,
+    within ``START_SLACK_NS`` of the error the chain before it ended at (of
+    0 for the first) and nearest it, runs both ways from there passing over
+    one time of either list that has no partner, and where it breaks the
+    next chain is sought after it."""
+    def agree(i, j, k, l):
+        return abs((host[k] - host[i]) - (trace[l] - trace[j])) <= GAP_SLACK_NS
+
+    def chain(i, j, step, lo_i, lo_j):
+        out = []
+        while True:
+            nxt = next(((k, l) for k in (i + step, i + 2 * step) for l in (j + step, j + 2 * step)
+                        if lo_i <= k < len(host) and lo_j <= l < len(trace)
+                        and agree(i, j, k, l)), None)
+            if nxt is None:
+                return out
+            i, j = nxt
+            out.append(nxt)
+
+    pairs = []
+    while True:
+        lo_i, lo_j = (pairs[-1][0] + 1, pairs[-1][1] + 1) if pairs else (0, 0)
+        err = trace[pairs[-1][1]] - host[pairs[-1][0]] if pairs else 0
+        start = None
+        for i in range(lo_i, len(host) - run):
+            js = [j for j in range(lo_j, len(trace) - run)
+                  if abs(trace[j] - host[i] - err) <= START_SLACK_NS
+                  and all(agree(i + k, j + k, i + k + 1, j + k + 1) for k in range(run))]
+            if js:
+                start = (i, min(js, key=lambda j: abs(trace[j] - host[i] - err)))
+                break
+        if start is None:
+            return pairs
+        pairs += chain(*start, -1, lo_i, lo_j)[::-1] + [start] + chain(*start, 1, 0, 0)
 
 
 @dataclass
@@ -170,14 +246,45 @@ class WindowSpans:
             return []
         return list(zip(copies, ends))
 
-    def anchors(self, ops) -> list:
-        """(a copy's trace start, its error: that start on the host's clock
-        less the end of the ``worker.copy`` span that issued it), one for
-        each paired pinned copy that did not queue behind the device's work
-        (``QUEUED_NS``); [] where the copies and the spans do not pair."""
+    def _paired_syncs(self, ops) -> list:
+        """(pageable copy, the ``sync`` span inside a ``worker.upload`` that
+        waited for it) in order, where the two pair; else []."""
+        uploads = {s.id for s in self.spans if s.name == "worker.upload"}
+        waits = sorted((s for s in self.spans if s.name == "sync" and s.parent in uploads
+                        and self.lo <= s.start_ns <= self.hi), key=lambda s: s.end_ns)
+        if not waits:
+            return []
+        least = WAITED_SHARE * statistics.median(w.end_ns - w.start_ns for w in waits)
+        copies = [o for o in _pageable_copies(ops) if o.end_ns - o.start_ns >= least]
+        if len(copies) == len(waits):
+            return list(zip(copies, waits))
+        return [(copies[j], waits[i]) for i, j in
+                pair_by_gaps([w.end_ns for w in waits], [o.end_ns - self.offset for o in copies])]
+
+    def _pinned_anchors(self, ops) -> list:
         queued = _queued(ops)
         return [(o.start_ns, o.start_ns - self.offset - end)
                 for o, end in self._paired_copies(ops) if id(o) not in queued]
+
+    def _waited_anchors(self, ops) -> list:
+        """The waited-for copies' anchors, less those whose error lies more
+        than ``GAP_SLACK_NS`` from the median of its own and its ten
+        neighbours' (the trace drifts 0.2 ms a batch at most; a host that
+        waits for the interpreter's lock after the copy, or a copy's odd
+        record, reads ms off)."""
+        paired = [(o.end_ns, o.end_ns - self.offset - s.end_ns) for o, s in self._paired_syncs(ops)]
+        return [(t, e) for n, (t, e) in enumerate(paired)
+                if abs(e - statistics.median(x for _, x in paired[max(0, n - 5):n + 6]))
+                <= GAP_SLACK_NS]
+
+    def anchors(self, ops) -> list:
+        """(a trace time, the trace's error there: that time on the host's
+        clock less the host's own reading of it), by trace time: a paired
+        pinned copy's start against the end of the ``worker.copy`` span that
+        issued it, where the copy did not queue behind the device's work
+        (``QUEUED_NS``), and a paired pageable copy's end against the end of
+        the ``sync`` span that waited for it; [] where neither pairs."""
+        return sorted(self._pinned_anchors(ops) + self._waited_anchors(ops))
 
     def on_host_clock(self, ops, anchors=None) -> list:
         """(start, end, op) of each device operation on the host's clock
@@ -228,9 +335,14 @@ class WindowSpans:
         as the join aligns it; None where the counts do not pair.  Aligned,
         an anchored copy starts as its ``worker.copy`` span ends, inside its
         upload span, by construction: only the K1 margin and the copies that
-        queued test the alignment there.  The anchors' errors, as the
+        queued test the alignment there.  On the synchronous path, each
+        batch's first device operation after its waited-for pageable copy
+        against the next ``worker.dispatch`` span on that thread
+        (``dispatch_margin_ns``): the copy anchors by its end, so only that
+        margin tests the alignment there.  The anchors' errors, as the
         alignment takes them out, give the trace's drift."""
-        anchors = self.anchors(ops)
+        pinned, waited = self._pinned_anchors(ops), self._waited_anchors(ops)
+        anchors = sorted(pinned + waited)
         aligned = {id(o): a for a, _, o in self.on_host_clock(ops, anchors)}
         copies = _pinned_copies(ops)
         k1 = sorted((o for o in ops if o.kind == "kernel" and K1 in o.name),
@@ -238,10 +350,22 @@ class WindowSpans:
         uploads, dispatches = self._starts("worker.upload"), self._starts("worker.dispatch")
         paired = len(self._paired_copies(ops))
         out = {"copies": len(copies), "uploads": len(uploads), "k1": len(k1),
-               "dispatched_batches": sum(c for _, c in dispatches), "anchors": len(anchors),
-               "queued_copies": paired - len(anchors),
+               "dispatched_batches": sum(c for _, c in dispatches), "anchors": len(pinned),
+               "queued_copies": paired - len(pinned), "pageable_copies": len(_pageable_copies(ops)),
+               "waited_pairs": len(self._paired_syncs(ops)), "waited_anchors": len(waited),
                "drift_ns": ([min(e for _, e in anchors), max(e for _, e in anchors)]
                             if anchors else None)}
+        by_start = sorted(ops, key=lambda o: o.start_ns)
+        starts = [o.start_ns for o in by_start]
+        dispatch_starts = sorted((s.thread, s.start_ns) for s in self.spans
+                                 if s.name == "worker.dispatch")
+        after = []  # (the first operation after a waited copy, its dispatch's start)
+        for copy, wait in self._paired_syncs(ops):
+            i = bisect.bisect_left(starts, copy.end_ns)
+            j = bisect.bisect_left(dispatch_starts, (wait.thread, wait.end_ns))
+            if (i < len(by_start) and j < len(dispatch_starts)
+                    and dispatch_starts[j][0] == wait.thread):
+                after.append((by_start[i], dispatch_starts[j][1]))
         for clock, start in (("raw_", lambda o: o.start_ns - self.offset),
                              ("", lambda o: aligned[id(o)])):
             out[clock + "copy_margin_ns"] = (
@@ -253,6 +377,8 @@ class WindowSpans:
                     firsts.append(start(k1[i]) - u)
                     i += n
             out[clock + "k1_margin_ns"] = min(firsts) if firsts else None
+            out[clock + "dispatch_margin_ns"] = (min(start(o) - d for o, d in after)
+                                                 if after else None)
         return out
 
 

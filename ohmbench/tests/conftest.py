@@ -24,6 +24,12 @@ SMALL = {
                        "traffic": {"batching": {"pool_batches": 6},
                                    "scene": {"half_extents": [0.6, 0.6, 0.35]},
                                    "path": {"radius_m": 0.2}}},
+    # The first two revolutions of the drive, in 0.4 m voxels and 8^3
+    # regions: the cell's 3.2 m regions, so its arena keeps its 8192 slots
+    # (the segmented wire) with no eviction, in 16 MiB.
+    "occ-survey-stream": {"config": {"batch_size": 256, "resolution": 0.4, "region_dim": 8},
+                          "traffic": {"path": {"to_m": [-119.7, 0.0]},
+                                      "warmup": {"batches": 4}}},
 }
 
 

@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from ohmbench import run
+from ohmbench import find, generator, run
 from conftest import SMALL, cell_of
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -41,11 +41,10 @@ def test_cell_files_are_found_by_name(name):
     config = run.load_json("configs", cell["config"] + ".json")
     mix = run.load_json("traffic", cell["traffic"] + ".json")
     limits = run.load_json("limits", cell["name"] + ".json")
-    assert config["mapper"] and mix["loop"]["kind"] == "closed"
-    numbers = {"voxel_mismatch_share", "rays_lost"}
-    if config["mode"] == "ndt":
-        numbers |= {"ndt_mismatch_share", "ndt_overflow"}
-    assert set(limits) == numbers
+    assert config["mapper"] and callable(find("loops", mix["loop"]["kind"]).drive_window)
+    assert len(generator.parts(mix)) == 3
+    # Each mode names the numbers it compares; the cell gives each a limit.
+    assert set(limits) == set(find("modes", config["mode"]).NUMBERS)
     assert NAME.match(cell["config"]) and NAME.match(cell["traffic"])
 
 

@@ -13,9 +13,13 @@ PROBE = """
 import json, sys
 import ohmbench.reference, ohmbench.reference.walk, ohmbench.reference.occupancy
 import ohmbench.reference.compare, ohmbench.reference.ndt
+import ohmbench.modes.occupancy, ohmbench.modes.ndt
 ref_tops = sorted({m.split('.')[0] for m in sys.modules})
 import ohmbench.run, ohmbench.generator, ohmbench.control, ohmbench.devicetrace
-import ohmbench.hostmeter
+import ohmbench.hostmeter, ohmbench.loops.closed, ohmbench.traffic_parts.scene_room
+import ohmbench.traffic_parts.scene_street, ohmbench.traffic_parts.sensor_sphere
+import ohmbench.traffic_parts.sensor_spinning, ohmbench.traffic_parts.path_orbit
+import ohmbench.traffic_parts.path_drive
 run_tops = sorted({m.split('.')[0] for m in sys.modules})
 print(json.dumps({"reference": ref_tops, "run": run_tops}))
 """

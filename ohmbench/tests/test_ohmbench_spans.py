@@ -1,14 +1,20 @@
 """The readers of the program's worker spans (``ohmbench/spans.py`` and the
 seven metrics that read it), on hand-made spans and device operations whose
-shares are worked out by hand; a CPU run in which the span and counter
+shares are worked out by hand, on the worker's pinned copies and on the
+synchronous path's pageable ones; a CPU run in which the span and counter
 readers find their spans; and, on the card, the clock check."""
+
+import json
+import os
+import subprocess
+import sys
 
 import pytest
 
 from ohm_tpu_torch.utils.profile import Span
 from ohmbench import run, spans
 from ohmbench.devicetrace import DeviceOp, WindowTrace
-from conftest import SMALL
+from conftest import ROOT, SMALL
 
 #: The window [LO, HI] on perf_counter_ns, and the offset onto the trace's
 #: clock.
@@ -203,6 +209,117 @@ def test_clock_margins_pair_a_chain_and_refuse_unpaired_counts():
     assert unpaired["k1_margin_ns"] is None
 
 
+PAGEABLE = "Memcpy HtoD (Pageable -> Device)"
+#: Two batches on the synchronous path (times in U ns from LO): each goes up
+#: in a pageable copy that a ``sync`` span inside its ``worker.upload``
+#: waits for, so the copy ends as that span ends, and the second copy
+#: starts as the kernel before it ends.  Each dispatch first makes a
+#: pageable copy of a few bytes of its own (10 U, then 20 U into its span),
+#: which no span waits for; the second dispatch waits once on a read.
+SYNC_SPANS = [
+    _span("worker.prep", _at(0), _at(1_000), 50),
+    _span("worker.upload", _at(1_000), _at(1_500), 51),
+    _span("sync", _at(1_010), _at(1_500), 52, parent=51),
+    _span("worker.dispatch", _at(1_500), _at(3_000), 53),
+    _span("worker.prep", _at(3_000), _at(5_000), 54, batch=1),
+    _span("worker.upload", _at(5_000), _at(5_400), 55, batch=1),
+    _span("sync", _at(5_010), _at(5_400), 56, parent=55, batch=1),
+    _span("worker.dispatch", _at(5_400), _at(7_000), 57, batch=1),
+    _span("sync", _at(6_000), _at(6_100), 58, parent=57, batch=1),
+]
+SYNC_TRUE_OPS = [(_at(1_100), _at(1_500), PAGEABLE, "gpu_memcpy"),
+                 (_at(1_510), _at(1_511), PAGEABLE, "gpu_memcpy"),
+                 (_at(1_530), _at(1_800), "k", "kernel"),
+                 (_at(4_200), _at(4_700), "k", "kernel"),
+                 (_at(4_700), _at(5_400), PAGEABLE, "gpu_memcpy"),
+                 (_at(5_420), _at(5_421), PAGEABLE, "gpu_memcpy"),
+                 (_at(5_450), _at(5_600), "k", "kernel")]
+
+
+@pytest.mark.parametrize("error", [-700 * U, 0, 900 * U])
+def test_the_synchronous_paths_copies_anchor_by_their_end(error):
+    """The trace off the host's clock by ``error``: each waited-for copy
+    anchors it, the one that queued too, the dispatches' own few-byte
+    copies none, and the join puts every operation back where the host saw
+    it."""
+    true_ops = [_op(a, b, name, kind) for a, b, name, kind in SYNC_TRUE_OPS]
+    off = [_op(a + error, b + error, name, kind) for a, b, name, kind in SYNC_TRUE_OPS]
+    snap = spans.WindowSpans(spans=SYNC_SPANS, lo=LO, hi=DRIFT_HI, offset=OFFSET)
+    assert [e for _, e in snap.anchors(off)] == [error, error]
+    assert [(a, b) for a, b, _ in snap.on_host_clock(off)] == [
+        (a, b) for a, b, _, _ in SYNC_TRUE_OPS]
+    assert snap.idle_split(off) == pytest.approx(snap.idle_split(true_ops))
+    got = snap.clock_margins(off)
+    assert (got["copies"], got["anchors"], got["pageable_copies"], got["waited_anchors"]) == (
+        0, 0, 4, 2)
+    assert got["drift_ns"] == [error, error]
+    assert got["raw_dispatch_margin_ns"] == 10 * U + error
+    assert got["dispatch_margin_ns"] == 10 * U
+
+
+def test_the_synchronous_paths_copies_pair_or_anchor_nothing():
+    """One upload's ``sync`` span left out: the copies no longer pair with
+    the spans, so none anchors and the device joins read nothing."""
+    ops = [_op(a, b, name, kind) for a, b, name, kind in SYNC_TRUE_OPS]
+    snap = spans.WindowSpans(spans=[s for s in SYNC_SPANS if s.id != 56], lo=LO,
+                             hi=DRIFT_HI, offset=OFFSET)
+    assert snap.anchors(ops) == []
+    assert snap.clock_margins(ops)["dispatch_margin_ns"] is None
+    ctx = _ctx(ops=ops, span_list=[s for s in SYNC_SPANS if s.id != 56])
+    assert spans.idle_shares(ctx) is None
+
+
+#: Ends of twelve uploads' waits (ms on the host's clock), a batch every
+#: 15-40 ms, as the survey's synchronous path spaces them.
+WAIT_ENDS_MS = [14.6, 46.8, 68.1, 95.7, 112.0, 140.3, 158.9, 190.2, 206.5, 238.8, 255.1, 290.0]
+
+
+@pytest.mark.parametrize("dropped,unpaired", [
+    ((), ()), ((0,), ()), ((0, 5), ()), ((3, 6), ()), ((11,), ()),
+    # Two in a row break the chain; the three before them make no chain of
+    # three gaps, so they stay unpaired.
+    ((3, 4), (0, 1, 2)),
+])
+def test_pair_by_gaps_passes_over_the_copies_a_trace_dropped(dropped, unpaired):
+    """The copies' ends on the trace's clock, 20 us late and drifting 2 ms
+    over the window, less the ``dropped`` ones; and the same with the
+    batches evenly spaced, where only the error tells a batch from the
+    next: every copy paired is paired with its own wait, whatever the two
+    counts."""
+    for ends in (WAIT_ENDS_MS, [14.6 + 25.0 * n for n in range(len(WAIT_ENDS_MS))]):
+        host = [int(t * 1e6) for t in ends]
+        kept = [i for i in range(len(host)) if i not in dropped]
+        trace = [host[i] + 20_000 + 2_000_000 * host[i] // host[-1] for i in kept]
+        assert spans.pair_by_gaps(host, trace) == [
+            (i, j) for j, i in enumerate(kept) if i not in unpaired]
+
+
+def test_a_dropped_upload_copy_leaves_the_others_anchored():
+    """Twelve batches on the synchronous path, the trace missing the first
+    upload's copy: the other eleven anchor it, each with its own error."""
+    waits, ops, sid = [], [], 100
+    for n, end_ms in enumerate(WAIT_ENDS_MS):
+        end = LO + int(end_ms * 1e6)
+        waits += [_span("worker.upload", end - 500_000, end, sid, batch=n),
+                  _span("sync", end - 400_000, end, sid + 1, parent=sid, batch=n),
+                  _span("worker.dispatch", end, end + 300_000, sid + 2, batch=n)]
+        sid += 3
+        ops.append(_op(end - 300_000, end, PAGEABLE, "gpu_memcpy"))
+        ops.append(_op(end + 400_000, end + 400_800, PAGEABLE, "gpu_memcpy"))
+    every, ops = ops, ops[1:]
+    snap = spans.WindowSpans(spans=waits, lo=LO, hi=LO + 300_000_000, offset=OFFSET)
+    anchors = snap.anchors(ops)
+    assert [a - OFFSET for a, _ in anchors] == [LO + int(t * 1e6) for t in WAIT_ENDS_MS[1:]]
+    assert all(e == 0 for _, e in anchors)
+    # Every copy in the trace, and the seventh upload's span ending 5 ms
+    # late (its host waited for the interpreter's lock): that anchor reads
+    # 5 ms off its neighbours' and is left out; the others stand.
+    late = [w._replace(end_ns=w.end_ns + 5_000_000) if w.id in (118, 119) else w for w in waits]
+    snap = spans.WindowSpans(spans=late, lo=LO, hi=LO + 300_000_000, offset=OFFSET)
+    assert [a - OFFSET for a, _ in snap.anchors(every)] == [
+        LO + int(t * 1e6) for n, t in enumerate(WAIT_ENDS_MS) if n != 6]
+
+
 def test_device_joins_read_nothing_without_an_anchor():
     """Device operations and spans, but no copy to put the trace's clock on
     the host's: the copies do not pair with the worker.copy spans, or the
@@ -269,3 +386,27 @@ def test_card_clock_check(card):
 
 
 test_card_clock_check = pytest.mark.cuda(test_card_clock_check)
+
+
+def test_card_clock_check_on_the_synchronous_path(card, tmp_path):
+    """On the card, in the survey cell (the segmented wire, integrated
+    synchronously on the worker), in a process whose one traced window it
+    is, as in every benchmark run (a process's later traced windows drop
+    copies and read the trace's clock ms off): the uploads' waited-for
+    pageable copies anchor the trace, and aligned, each dispatch's first
+    device operation starts no earlier than its span, less the slack."""
+    out = tmp_path / "spancheck.json"
+    subprocess.run([sys.executable, os.path.join(ROOT, "ohmbench", "spancheck.py"),
+                    "--workload", "occ-survey-stream", "--seed", "51", "--cost-seconds", "0",
+                    "--out", str(out)], check=True, timeout=900, stdout=subprocess.DEVNULL)
+    got = json.loads(out.read_text())["traced"]
+    clock = got["clock"]
+    uploads = got["spans"]["worker.upload"]
+    assert uploads > 0 and clock["waited_anchors"] >= 0.9 * uploads, clock
+    assert clock["dispatch_margin_ns"] is not None, clock
+    assert clock["dispatch_margin_ns"] >= -spans.CLOCK_SLACK_NS, clock
+    assert got["idle_split_share"] is not None, got
+
+
+test_card_clock_check_on_the_synchronous_path = pytest.mark.cuda(
+    test_card_clock_check_on_the_synchronous_path)
