@@ -6,7 +6,7 @@ precision lower than the configuration states, must come out not correct.
 For each seed this makes the cell's pool, takes the sequence of batches a
 run integrates (the warm-up, then ``--window-batches`` batches of the
 window), and compares with the reference, by the cell's own comparison,
-the map that each control gives:
+the map that each control gives (the mode's ``compare``):
 
 ``geometry_f32``
     keys, the line walk and the NDT math in float32, where the
@@ -55,7 +55,7 @@ def control_readings(workload: str, seed: int, window_batches: int, device="cuda
     for name, (geometry, values) in CONTROLS.items():
         ctl = mode.make_reference(config, getattr(torch, geometry), getattr(torch, values))
         ctl.walk_batches(batch, seq)
-        result = compare.compare(ctl.replay(seq), ref_map, config["resolution"])
+        result = mode.compare(ctl.replay(seq), ref_map, config["resolution"])
         rows.append({"workload": workload, "seed": seed, "control": name, "batches": len(seq),
                      **{k: compare.share(v) for k, v in result.items()},
                      "limits": {k: limits[k] for k in result}, "compared": result})

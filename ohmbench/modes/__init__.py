@@ -11,6 +11,15 @@ module gives
 ``program_map(m, config, device)``
     the program's map, read back into the host map ``m``, in the
     reference's form (``reference.compare.read_map``);
+``compare(prog, ref, resolution)``
+    ``{number: result}`` for the numbers of ``NUMBERS`` that come from
+    comparing the program's map with the reference's, each result a dict
+    with ``voxels`` and ``mismatched`` (``reference.compare.share``); the
+    mode draws on ``reference.compare``'s ``mismatch`` and
+    ``ndt_mismatch`` or brings its own;
+``VALUE_LAYERS``
+    the arena layers whose values ``compare`` reads: the tests' planted
+    fault alters what each batch wrote to them;
 ``counted(stats)``
     the numbers of ``NUMBERS`` that the program's own stats give (after
     ``sync_voxels``), beside those the comparison and the run give.

@@ -8,6 +8,9 @@ from ohmbench.modes import occupancy
 #: The occupancy numbers, the sampled voxels that disagree, and the NDT
 #: misses the program turned into standard ones.
 NUMBERS = occupancy.NUMBERS + ("ndt_mismatch_share", "ndt_overflow")
+#: Occupancy, as in ``occupancy``: NDT-OM's miss and hit phases write it,
+#: and the comparison reads it voxel by voxel.
+VALUE_LAYERS = occupancy.VALUE_LAYERS
 
 
 def make_reference(config: dict, geometry=None, values=None):
@@ -25,6 +28,13 @@ def program_map(m, config: dict, device) -> dict:
         "occupancy": (m.layer_index("occupancy"), ("occupancy",)),
         "mean": (m.layer_index("mean"), ("coord", "count")),
         "covariance": (m.layer_index("covariance"), compare.COV_KEYS)})
+
+
+def compare(prog: dict, ref: dict, resolution: float) -> dict:
+    from ohmbench.reference.compare import ndt_mismatch
+
+    return {**occupancy.compare(prog, ref, resolution),
+            "ndt_mismatch_share": ndt_mismatch(prog, ref, resolution)}
 
 
 def counted(stats: dict) -> dict:

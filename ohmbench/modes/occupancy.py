@@ -6,6 +6,8 @@ from __future__ import annotations
 #: Voxels that disagree with the reference, and rays submitted but not
 #: counted by the program.
 NUMBERS = ("voxel_mismatch_share", "rays_lost")
+#: The arena layers whose values the comparison reads.
+VALUE_LAYERS = ("occupancy",)
 
 
 def grid_and_params(config: dict):
@@ -48,6 +50,13 @@ def read_layers(m, config: dict, device, layers: dict) -> dict:
 def program_map(m, config: dict, device) -> dict:
     return read_layers(m, config, device,
                        {"occupancy": (m.layer_index("occupancy"), ("occupancy",))})
+
+
+def compare(prog: dict, ref: dict, resolution: float) -> dict:
+    from ohmbench.reference.compare import mismatch
+
+    return {"voxel_mismatch_share": mismatch(prog["ids"], prog["occupancy"],
+                                             ref["ids"], ref["occupancy"])}
 
 
 def counted(stats: dict) -> dict:

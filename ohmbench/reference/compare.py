@@ -1,4 +1,4 @@
-"""The comparison that decides ``correct``: two maps, voxel by voxel.
+"""What the modes' comparisons draw on: two maps, voxel by voxel.
 
 A map is given as sorted voxel ids with their occupancy values (every
 observed voxel, none other).  A voxel mismatches where one side observed it
@@ -6,7 +6,8 @@ and the other did not, or where the two values differ by more than
 ``TOLERANCE``.  The number compared is the share of mismatching voxels
 among those either side observed.  An NDT-OM map adds its sampled voxels'
 counts, means and covariances, compared the same way
-(``ndt_mismatch``).
+(``ndt_mismatch``).  Each mode's ``compare`` (``ohmbench/modes``) picks
+the comparisons that decide ``correct`` in its cells.
 """
 
 from __future__ import annotations
@@ -125,16 +126,6 @@ def ndt_mismatch(a: dict, b: dict, resolution: float) -> dict:
             "count_differs": int((ca != cb).sum()),
             "worst_mean_steps": float(mean_off.max()) if union.numel() else 0.0,
             "worst_cov_share": float(cov_off.max()) if union.numel() else 0.0}
-
-
-def compare(prog: dict, ref: dict, resolution: float) -> dict:
-    """Each comparison of two maps in the reference's form, by the name of
-    the number it gives (``share`` of each)."""
-    out = {"voxel_mismatch_share": mismatch(prog["ids"], prog["occupancy"],
-                                            ref["ids"], ref["occupancy"])}
-    if "ndt_ids" in ref:
-        out["ndt_mismatch_share"] = ndt_mismatch(prog, ref, resolution)
-    return out
 
 
 def share(result: dict) -> float:

@@ -11,10 +11,15 @@ settings) and a traffic mix (``ohmbench/traffic/<traffic>.json``, read by
 After the window it reads the map back (``sync_voxels``), frees the
 program's state and works the map out again with the plain reference of
 the configuration's mode (``ohmbench/modes/<mode>.py`` over
-``ohmbench/reference``) from the same rays; ``correct`` is the comparison
-against the limits in ``ohmbench/limits/<cell>.json``.  Every such file is
-found by the name a cell, a configuration or a mix gives, so a new cell,
-mode, traffic part or loop is a new file.
+``ohmbench/reference``) from the same rays; ``correct`` holds the numbers
+of the mode's own ``compare``, the rays lost and the mode's counts of the
+program's stats against the limits in ``ohmbench/limits/<cell>.json``.
+Every such file is found by the name a cell, a configuration or a mix
+gives, so a new cell, mode, traffic part or loop is a new file.  A mode
+also names the arena layers its comparison reads (``VALUE_LAYERS``),
+which the tests' planted fault alters, and a cell brings the size at
+which ``ohmbench/tests`` run it on the CPU, with the controls that must
+fail there (``ohmbench/small/<cell>.json``).
 
 With ``--trace 0`` the last line of standard output holds the cell's
 end-to-end metrics; with ``--trace 1`` its per-layer metrics, each read by
@@ -278,7 +283,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     ref = mode.make_reference(config)
     ref.walk_batches(lambda i: torch.from_numpy(pool.batches[i]).to(device), pool.sequence)
     ref_map = ref.replay(pool.sequence)
-    result = compare.compare(prog, ref_map, config["resolution"])
+    result = mode.compare(prog, ref_map, config["resolution"])
     ref_s = time.perf_counter() - t_ref
     ctx["counts"] = ref.counts
     ctx["gauss_voxels"] = getattr(ref, "gauss_voxels", None)

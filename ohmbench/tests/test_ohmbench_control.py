@@ -2,39 +2,38 @@
 
 The control (the reference a precision lower, in the program's place) and
 a run with the timed path broken underneath, each at a size the CPU holds,
-on the cells' own comparison and limits."""
+on the cells' own comparison and limits.  Each cell's size and the
+controls that must fail there come from its ``ohmbench/small/<cell>.json``;
+the checks below take any cell those files and ``run.load_cell`` find."""
 
 import pytest
 
-from ohmbench import control, run
+from ohmbench import control, find, run, small
 from conftest import SMALL
 
 CELLS = list(SMALL)
 
 
-#: The controls that must fail at each cell's small size.  The NDT cell's
-#: test room is 1.2 m across, so its float32 keys seldom differ from the
-#: float64 ones; its geometry control is read at the cell's own size on the
-#: card (PERF.md, section 2).
-FAILING_SMALL = {"occ-box-stream": set(control.CONTROLS), "ndt-box-stream": {"values_bf16"},
-                 "occ-survey-stream": set(control.CONTROLS)}
+def control_fails(workload, seed):
+    """Both controls give readings; each that the cell's small file names
+    fails at least one of the cell's numbers."""
+    spec = small.load(workload)
+    rows = control.control_readings(workload, seed, 24, "cpu", spec["overrides"])
+    assert {r["control"] for r in rows} == set(control.CONTROLS)
+    for r in rows:
+        if r["control"] in spec["failing_controls"]:
+            assert any(r[k] > limit for k, limit in r["limits"].items()), r
 
 
 @pytest.mark.parametrize("workload", CELLS)
 @pytest.mark.parametrize("seed", [31, 32, 2**31 + 33])
 def test_control_is_not_correct(workload, seed):
-    rows = control.control_readings(workload, seed, 24, "cpu", SMALL[workload])
-    assert {r["control"] for r in rows} == set(control.CONTROLS)
-    for r in rows:
-        if r["control"] in FAILING_SMALL[workload]:
-            # The control fails at least one of the cell's numbers.
-            assert any(r[k] > limit for k, limit in r["limits"].items()), r
+    control_fails(workload, seed)
 
 
-@pytest.mark.parametrize("workload", CELLS)
-@pytest.mark.parametrize("trace", [False, True])
-def test_sound_run_is_correct(workload, trace):
-    out = run.run_cell(workload, 41, 1.0, trace, device="cpu", overrides=SMALL[workload])
+def sound_run_is_correct(workload, trace):
+    out = run.run_cell(workload, 41, 1.0, trace, device="cpu",
+                       overrides=small.load(workload)["overrides"])
     assert out["correct"], out["checks"]
     assert list(out)[-1] == "checks"
     assert out["attempted"] > 0 and out["failed"] == 0
@@ -47,17 +46,25 @@ def test_sound_run_is_correct(workload, trace):
         assert ("host_prep_ms_per_batch.stream" in out["metrics"]) == bool(listed)
     else:
         assert set(out["metrics"]) == {"rays_per_s", "setup_s"}
+    return out
 
 
-def _mapper_class(workload):
-    """The program's mapper class that the cell's configuration names."""
+@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("trace", [False, True])
+def test_sound_run_is_correct(workload, trace):
+    sound_run_is_correct(workload, trace)
+
+
+def _target(workload):
+    """The program's mapper class that the cell's configuration names, and
+    the configuration's mode."""
     import ohm_tpu_torch
 
-    _, config, _, _ = run.load_cell(workload, SMALL[workload])
-    return getattr(ohm_tpu_torch, config["mapper"])
+    _, config, _, _ = run.load_cell(workload, small.load(workload)["overrides"])
+    return getattr(ohm_tpu_torch, config["mapper"]), find("modes", config["mode"])
 
 
-def _state_unchanged(monkeypatch, cls):
+def _state_unchanged(monkeypatch, cls, mode):
     """Every third batch leaves the map as it found it."""
     real = cls._integrate_device
     calls = [0]
@@ -75,7 +82,7 @@ def _state_unchanged(monkeypatch, cls):
     monkeypatch.setattr(cls, "_integrate_device", integrate)
 
 
-def _half_batch(monkeypatch, cls):
+def _half_batch(monkeypatch, cls, mode):
     """Every batch integrates only its first half of rays."""
     real = cls.integrate_rays_async
 
@@ -86,28 +93,37 @@ def _half_batch(monkeypatch, cls):
     monkeypatch.setattr(cls, "integrate_rays_async", integrate)
 
 
-def _answer_altered(monkeypatch, cls):
-    """Each batch's update is off by 1e-3 of every value it wrote."""
+def _answer_altered(monkeypatch, cls, mode):
+    """Each batch's update is off by 1e-3 of every value it wrote to the
+    layers that the mode's comparison reads."""
     real = cls._integrate_device
 
     def integrate(self, b, cfg, n_rays, n_segments):
-        before = self.arena.layers["occupancy"].clone()
+        before = {name: self.arena.layers[name].clone() for name in mode.VALUE_LAYERS}
         stats = real(self, b, cfg, n_rays, n_segments)
-        occ = self.arena.layers["occupancy"]
-        written = occ != before
-        occ[written] = occ[written] * (1 + 1e-3)
+        for name, old in before.items():
+            layer = self.arena.layers[name]
+            written = layer != old
+            layer[written] = layer[written] * (1 + 1e-3)
         return stats
 
     monkeypatch.setattr(cls, "_integrate_device", integrate)
 
 
-@pytest.mark.parametrize("workload", CELLS)
-@pytest.mark.parametrize("fault", [_state_unchanged, _half_batch, _answer_altered],
-                         ids=lambda f: f.__name__.strip("_"))
-def test_broken_timed_path_is_not_correct(workload, fault, monkeypatch):
-    fault(monkeypatch, _mapper_class(workload))
-    out = run.run_cell(workload, 43, 1.0, False, device="cpu", overrides=SMALL[workload])
+FAULTS = (_state_unchanged, _half_batch, _answer_altered)
+
+
+def fault_is_not_correct(workload, fault, monkeypatch):
+    fault(monkeypatch, *_target(workload))
+    out = run.run_cell(workload, 43, 1.0, False, device="cpu",
+                       overrides=small.load(workload)["overrides"])
     assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("fault", FAULTS, ids=lambda f: f.__name__.strip("_"))
+def test_broken_timed_path_is_not_correct(workload, fault, monkeypatch):
+    fault_is_not_correct(workload, fault, monkeypatch)
 
 
 def test_card_run_is_correct(card):

@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from ohmbench import find, generator, run
+from ohmbench import control, find, generator, run, small
 from conftest import SMALL, cell_of
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -46,6 +46,8 @@ def test_cell_files_are_found_by_name(name):
     # Each mode names the numbers it compares; the cell gives each a limit.
     assert set(limits) == set(find("modes", config["mode"]).NUMBERS)
     assert NAME.match(cell["config"]) and NAME.match(cell["traffic"])
+    # The controls that must fail at the cell's CPU size are controls.
+    assert set(small.load(name)["failing_controls"]) <= set(control.CONTROLS)
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
@@ -55,7 +57,8 @@ def test_benchmark_cells_name_their_configuration_files(cell):
     assert os.path.exists(os.path.join(run.ROOT, entry["file"]))
     config = run.load_json("configs", cell["config"] + ".json")
     assert sorted(entry["reduced"]) == sorted(config["reduced"])
-    assert cell["name"] in SMALL
+    # The size at which ohmbench/tests run the cell on the CPU.
+    assert small.path(cell["name"]) == os.path.join(run.HERE, "small", cell["name"] + ".json")
 
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])

@@ -1,9 +1,15 @@
 """The modes (``ohmbench/modes``) give the maps that ``run.py`` gave before
-they moved into files of their own, on a small CPU run of each box cell;
-and a mode, a scene and a client loop added as files alone carry a cell
-through ``run.run_cell`` with no edit to ``run.py`` or ``generator.py``."""
+they moved into files of their own, on a small CPU run of each box cell,
+and compare them as ``reference/compare.py`` did before each mode brought
+its own comparison; a mode, a scene and a client loop added as files alone
+carry a cell through ``run.run_cell`` with no edit to ``run.py`` or
+``generator.py``; and a mode with a comparison of its own, with a new
+cell's configuration, limits and small size, carries that cell through the
+run, the controls and the planted faults with no edit to a file that
+exists."""
 
 import hashlib
+import json
 import sys
 import textwrap
 
@@ -13,7 +19,9 @@ import torch
 import ohmbench
 import ohmbench.loops
 import ohmbench.modes
+import ohmbench.small
 import ohmbench.traffic_parts
+import test_ohmbench_control as checks
 from ohmbench import find, generator, run
 from conftest import SMALL
 
@@ -76,11 +84,50 @@ def test_modes_give_the_maps_run_py_gave(workload):
     assert all(torch.equal(got[k], before[k]) for k in got)
 
 
+#: ``reference.compare.compare``'s result on a small CPU run of each cell at
+#: seed 41 (the warm-up and six window batches, each through
+#: ``integrate_rays``), taken before each mode brought its own ``compare``.
+COMPARED_BEFORE = {
+    "occ-box-stream": {
+        "voxel_mismatch_share": {"voxels": 170487, "mismatched": 6, "status_differs": 6,
+                                 "worst_abs_diff": 0.0}},
+    "ndt-box-stream": {
+        "voxel_mismatch_share": {"voxels": 1327, "mismatched": 0, "status_differs": 0,
+                                 "worst_abs_diff": 1.9550323486328125e-05},
+        "ndt_mismatch_share": {"voxels": 575, "mismatched": 0, "count_differs": 0,
+                               "worst_mean_steps": 1.0000000139552867,
+                               "worst_cov_share": 0.0029868029593085195}},
+    "occ-survey-stream": {
+        "voxel_mismatch_share": {"voxels": 39575, "mismatched": 0, "status_differs": 0,
+                                 "worst_abs_diff": 0.0}},
+}
+
+
+@pytest.mark.parametrize("workload", sorted(COMPARED_BEFORE))
+def test_modes_compare_as_compare_py_did(workload):
+    _, config, mix, _ = run.load_cell(workload, SMALL[workload])
+    mode = find("modes", config["mode"])
+    pool = run.Pool(generator.make_pool(mix, 41, "cpu"), mix["batching"]["cycle"])
+    seq = pool.plan(mix["warmup"], 6)
+    m, mapper = run.build_mapper(config, "cpu")
+    for i in seq:
+        mapper.integrate_rays(pool.batches[i])
+    mapper.sync_voxels()
+    prog = mode.program_map(m, config, "cpu")
+    ref = mode.make_reference(config)
+    ref.walk_batches(lambda i: torch.from_numpy(pool.batches[i]), seq)
+    got = mode.compare(prog, ref.replay(seq), config["resolution"])
+    assert got == COMPARED_BEFORE[workload]
+    assert list(got) == list(COMPARED_BEFORE[workload])
+
+
 #: A mode that compares one number more than occupancy does.
 MODE = '''
 from ohmbench.modes import occupancy
 
 NUMBERS = occupancy.NUMBERS + ("empty_map",)
+VALUE_LAYERS = occupancy.VALUE_LAYERS
+compare = occupancy.compare
 CALLS = []
 
 
@@ -158,3 +205,68 @@ def test_a_mode_scene_and_loop_added_as_files_carry_a_cell(tmp_path, monkeypatch
         for name in ("ohmbench.modes.plugmode", "ohmbench.traffic_parts.scene_plugsphere",
                      "ohmbench.loops.plugsync"):
             sys.modules.pop(name, None)
+
+
+#: A mode that compares only NDT-OM's sampled voxels (their counts, means
+#: and covariances), with no ``voxel_mismatch_share``, and whose planted
+#: fault alters the covariance layer.
+COV_MODE = '''
+from ohmbench.modes import ndt
+from ohmbench.reference.compare import ndt_mismatch
+
+NUMBERS = ("ndt_mismatch_share", "rays_lost", "ndt_overflow")
+VALUE_LAYERS = ("cov",)
+make_reference = ndt.make_reference
+program_map = ndt.program_map
+counted = ndt.counted
+
+
+def compare(prog, ref, resolution):
+    return {"ndt_mismatch_share": ndt_mismatch(prog, ref, resolution)}
+'''
+#: The new cell's files: its configuration (NDT-OM under the plug mode),
+#: its limits and its small size, the NDT cell's.
+COV_CELL = {"name": "ndtcov-box-stream", "config": "ohmpop-ndtcov", "traffic": "box-stream",
+            "chips": 1}
+
+
+def test_a_mode_with_its_own_comparison_and_a_new_cell_added_as_files_carry_the_cell(
+        tmp_path, monkeypatch):
+    ndt_small = ohmbench.small.load("ndt-box-stream")
+    files = {
+        "modes/plugcov.py": textwrap.dedent(COV_MODE),
+        "configs/ohmpop-ndtcov.json": json.dumps(
+            {**run.load_json("configs", "ohmpop-ndt.json"), "mode": "plugcov"}),
+        "limits/ndtcov-box-stream.json": json.dumps(
+            {"ndt_mismatch_share": 1e-4, "rays_lost": 0, "ndt_overflow": 0}),
+        "small/ndtcov-box-stream.json": json.dumps(
+            {"why": "the NDT cell's small size",
+             "overrides": {"cell": COV_CELL, **ndt_small["overrides"]},
+             "failing_controls": ndt_small["failing_controls"]}),
+    }
+    for name, text in files.items():
+        (tmp_path / name).parent.mkdir(exist_ok=True)
+        (tmp_path / name).write_text(text)
+    # Modes and small files are found along their packages' paths; the
+    # configuration and the limits through run.load_json, here with the
+    # temporary directory beside ohmbench/.
+    for pkg in (ohmbench.modes, ohmbench.small):
+        directory = str(tmp_path / pkg.__name__.split(".")[-1])
+        monkeypatch.setattr(pkg, "__path__", [*pkg.__path__, directory])
+    real_load_json = run.load_json
+
+    def load_json(*parts):
+        path = tmp_path.joinpath(*parts)
+        return json.loads(path.read_text()) if path.exists() else real_load_json(*parts)
+
+    monkeypatch.setattr(run, "load_json", load_json)
+    name = COV_CELL["name"]
+    try:
+        out = checks.sound_run_is_correct(name, False)
+        assert set(out["checks"]) == set(sys.modules["ohmbench.modes.plugcov"].NUMBERS)
+        checks.control_fails(name, 31)
+        for fault in checks.FAULTS:
+            with monkeypatch.context() as m:
+                checks.fault_is_not_correct(name, fault, m)
+    finally:
+        sys.modules.pop("ohmbench.modes.plugcov", None)

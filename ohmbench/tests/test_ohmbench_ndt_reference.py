@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from ohmbench.modes import ndt
 from ohmbench.reference import compare
 from ohmbench.reference.ndt import NdtParams, NdtReference, merge, miss_delta
 from ohmbench.reference.occupancy import OccupancyParams
@@ -97,7 +98,7 @@ def test_first_batch_matches_the_sequential_oracle():
     ref.walk_batches(lambda i: torch.from_numpy(r), [0])
     mine = ref.replay([0])
     assert mine["ndt_ids"].shape[0] == n
-    result = compare.compare(oracle, mine, GRID.resolution)
+    result = ndt.compare(oracle, mine, GRID.resolution)
     assert result["voxel_mismatch_share"]["voxels"] > 1000
     assert result["voxel_mismatch_share"]["mismatched"] == 0
     assert result["ndt_mismatch_share"]["mismatched"] == 0
